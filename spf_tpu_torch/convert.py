@@ -2,11 +2,20 @@
 
 The JAX package keeps torus arrays either as u64 numpy arrays or, on its
 TPU path, as u32 limb pairs (hi, lo). Coefficient-domain keys are
-backend-neutral, so a multi-bit bootstrap key made by
-`spf_tpu.ops.multibit.generate_multibit_bsk` (u64) or by
-`spf_tpu.ops.encryption_u32.generate_multibit_bsk_u32` (limbs) becomes a
-`MultibitBootstrap` whose spectra the port's own FFT makes. Nothing here
-imports the JAX package: parameters convert by their field names.
+backend-neutral, so the keys the JAX package makes (u64 or limbs) become
+port modules whose spectra the port's own FFT makes:
+
+- a multi-bit bootstrap key (`multibit.generate_multibit_bsk`,
+  `encryption_u32.generate_multibit_bsk_u32`) -> `MultibitBootstrap`;
+- a single-bit bootstrap key [n0, k+1, l, k+1, N] (`bench.py`'s
+  `*_bsk_coeff.npy`) -> `Bootstrap`;
+- circuit bootstrapping's keys: a bootstrap key of either kind, the
+  automorphism keys (`generate_automorphism_keys_u32`), the scheme-switch
+  key (`generate_scheme_switch_key_u32`) and the LWE keyswitch key
+  (`generate_lwe_keyswitch_key_u32`) -> `ConversionCycle`.
+
+Nothing here imports the JAX package: parameters convert by their field
+names.
 """
 
 from __future__ import annotations
@@ -18,6 +27,8 @@ import torch
 
 from . import params as _params
 from .ops import torus
+from .ops.bootstrap import Bootstrap
+from .ops.cbs import ConversionCycle
 from .ops.multibit import MultibitBootstrap
 
 
@@ -63,10 +74,35 @@ def param(obj):
     return cls(**kwargs)
 
 
+def _port_param(obj, cls):
+    return obj if isinstance(obj, cls) else param(obj)
+
+
 def multibit_bootstrap(bsk, lut, glwe, radix, group: int, device="cuda") -> MultibitBootstrap:
     """Coefficient-domain multi-bit BSK, u64 [n_groups, 2^g-1, k+1, l,
     k+1, N] or its limb pair, and a LUT u64 [k+1, N] or limb pair ->
     `MultibitBootstrap` on `device`."""
-    glwe = param(glwe) if not isinstance(glwe, _params.GlweDef) else glwe
-    radix = param(radix) if not isinstance(radix, _params.RadixDecomposition) else radix
-    return MultibitBootstrap(_as_u64(bsk), _as_u64(lut), glwe, radix, group, device=device)
+    return MultibitBootstrap(_as_u64(bsk), _as_u64(lut), _port_param(glwe, _params.GlweDef),
+                             _port_param(radix, _params.RadixDecomposition), group, device=device)
+
+
+def bootstrap(bsk, lut, glwe, radix, fuse_rot: bool = False, phase_rot: bool = False,
+              device="cuda") -> Bootstrap:
+    """Coefficient-domain single-bit BSK, u64 [n0, k+1, l, k+1, N] or its
+    limb pair, and a LUT u64 [k+1, N] or limb pair -> `Bootstrap` on
+    `device`, in the blind-rotation form `fuse_rot` / `phase_rot` pick."""
+    return Bootstrap(_as_u64(bsk), _as_u64(lut), _port_param(glwe, _params.GlweDef),
+                     _port_param(radix, _params.RadixDecomposition), fuse_rot, phase_rot,
+                     device=device)
+
+
+def conversion_cycle(bsk, auto_keys, ssk, ksk, params, phase_rot: bool = False,
+                     device="cuda") -> ConversionCycle:
+    """Circuit bootstrapping's coefficient-domain keys, each u64 or a limb
+    pair (bootstrap key multi-bit [n_groups, 2^g-1, k+1, l, k+1, N] or
+    single-bit [n0, k+1, l, k+1, N] at `params.cbs_pbs_radix_eff`;
+    automorphism keys [log2 N, k, l_tr, k+1, N]; scheme-switch key
+    [k, k, l_ss, k+1, N]; LWE keyswitch key [k*N, l_ks, n0+1]) and the
+    JAX package's `Params` -> `ConversionCycle` on `device`."""
+    return ConversionCycle(_as_u64(bsk), _as_u64(auto_keys), _as_u64(ssk), _as_u64(ksk),
+                           _port_param(params, _params.Params), phase_rot, device=device)

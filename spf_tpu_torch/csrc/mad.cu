@@ -1,5 +1,5 @@
 // Multi-bit MAD + Horner subset phases, the frequency-domain half of a
-// multi-bit blind-rotation step.
+// blind-rotation step.
 //
 // Replaces the Pallas kernel spf_tpu/ops/mad_pallas.py::mad_horner_fused
 // (:94). For every (bin, batch column) it forms the 2^g - 1 subset MADs
@@ -12,7 +12,12 @@
 // it agrees with the plain version (freq_mad per subset +
 // nested_subset_sum) bit for bit. Unlike the TPU kernel it takes any K and
 // B, not only multiples of 128. Built for k+1 = 2 (every parameter set's
-// blind rotation has k = 1) and g = 3 (the PBS).
+// blind rotation has k = 1) and g = 3 (the multi-bit PBS), g = 2 (the
+// multi-bit rotation inside circuit bootstrapping, l = 4) and g = 1 (the
+// single-bit phase_rot step: one MAD times (phase - 1), the order of
+// bootstrap_u32.py:278-280). g = 0 is the plain MAD of one key row with
+// no phase (freq_mad, bootstrap_u32.py:161; XLA glue on the TPU), the
+// frequency-domain half of the single-bit plain and fuse_rot steps.
 //
 // What bounds it on an H100: f32 throughput. At the main path's shapes (g = 3,
 // k+1 = 2, l = 2, K = 1024, B = 256) it moves ~39 MB but needs
@@ -54,7 +59,7 @@ template <int KP1, int G>
 __global__ void mad_horner_kernel(Planes4 dfft, Planes4 row, Planes4 u, float* __restrict__ orh,
                                   float* __restrict__ orl, float* __restrict__ oih,
                                   float* __restrict__ oil, int l, int k, int b) {
-  constexpr int NS = (1 << G) - 1;
+  constexpr int NS = G == 0 ? 1 : (1 << G) - 1;
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;  // bin * B + column
   if (idx >= k * b) return;
   const int bin = idx / b;
@@ -82,16 +87,21 @@ __global__ void mad_horner_kernel(Planes4 dfft, Planes4 row, Planes4 u, float* _
     }
   }
 
-  dsc uu[G];
+  dsc uu[G == 0 ? 1 : G];
 #pragma unroll
   for (int j = 0; j < G; ++j) uu[j] = u.load((size_t)j * plane + idx);
 
 #pragma unroll
   for (int o = 0; o < KP1; ++o) {
-    dsc mo[NS];
+    dsc v;
+    if constexpr (G == 0) {
+      v = mads[0][o];
+    } else {
+      dsc mo[NS];
 #pragma unroll
-    for (int m = 0; m < NS; ++m) mo[m] = mads[m][o];
-    const dsc v = Horner<G, 0, 0>::eval(mo, uu);
+      for (int m = 0; m < NS; ++m) mo[m] = mads[m][o];
+      v = Horner<G, 0, 0>::eval(mo, uu);
+    }
     const size_t out = (size_t)o * plane + idx;
     orh[out] = v.rh;
     orl[out] = v.rl;
@@ -112,7 +122,7 @@ int launch(const Planes4& d, const Planes4& r, const Planes4& u, float* o0, floa
 }  // namespace
 
 // dfft 4 x [l, k+1, K, B]; row 4 x [2^g-1, k+1, l, k+1, K]; u 4 x [g, K, B]
-// -> out 4 x [k+1, K, B]
+// -> out 4 x [k+1, K, B]. g = 0: row 4 x [k+1, l, k+1, K], u unread.
 extern "C" int spf_mad_horner(const float* d0, const float* d1, const float* d2, const float* d3,
                               const float* r0, const float* r1, const float* r2, const float* r3,
                               const float* u0, const float* u1, const float* u2, const float* u3,
@@ -122,6 +132,14 @@ extern "C" int spf_mad_horner(const float* d0, const float* d1, const float* d2,
     return static_cast<int>(cudaErrorInvalidValue);
   const Planes4 d{d0, d1, d2, d3}, r{r0, r1, r2, r3}, u{u0, u1, u2, u3};
   cudaStream_t s = (cudaStream_t)stream;
-  if (kp1 == 2 && g == 3) return launch<2, 3>(d, r, u, o0, o1, o2, o3, l, k, b, s);
+  if (kp1 == 2) {
+    switch (g) {
+      case 0: return launch<2, 0>(d, r, u, o0, o1, o2, o3, l, k, b, s);
+      case 1: return launch<2, 1>(d, r, u, o0, o1, o2, o3, l, k, b, s);
+      case 2: return launch<2, 2>(d, r, u, o0, o1, o2, o3, l, k, b, s);
+      case 3: return launch<2, 3>(d, r, u, o0, o1, o2, o3, l, k, b, s);
+      default: break;
+    }
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -153,14 +153,14 @@ def dispatch(name: str, t: torch.Tensor, kernel, plain, *args):
 
 def check_cuda(name: str, *tensors, dtype=torch.float32) -> None:
     """Raise unless every tensor is a contiguous CUDA tensor of `dtype`
-    on the device of the first."""
+    (any dtype for None) on the device of the first."""
     dev = tensors[0].device
     if dev.type == "cuda" and dev.index != torch.cuda.current_device():
         raise ValueError(f"{name}: kernels launch on the current device, not {dev}")
     for t in tensors:
         if not t.is_cuda or t.device != dev:
             raise ValueError(f"{name}: all tensors must be on {dev}, got {t.device}")
-        if t.dtype != dtype:
+        if dtype is not None and t.dtype != dtype:
             raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")

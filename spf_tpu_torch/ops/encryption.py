@@ -1,9 +1,10 @@
-"""Keys and encryption for the multi-bit PBS, on int64 torus tensors.
+"""Keys and encryption on int64 torus tensors.
 
 Port of `spf_tpu/ops/encryption_u32.py` (binary secret keys, the exact
-negacyclic product with a binary key, GLWE/GLEV/GGSW encryption, the
-multi-bit bootstrap key) and of the host LWE encryption of
-`spf_tpu/utils/host_crypto.py` / `bench.py`.
+negacyclic product with a binary key, LWE/GLWE/GLEV/GGSW encryption, the
+single-bit and multi-bit bootstrap keys, the automorphism, scheme-switch
+and LWE keyswitch keys of circuit bootstrapping) and of the host LWE
+encryption of `spf_tpu/utils/host_crypto.py` / `bench.py`.
 
 Randomness comes from an explicit `torch.Generator`; tensors are made on
 the generator's device, so keygen runs on the card when the generator
@@ -84,6 +85,31 @@ def negacyclic_mul_binary(a: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     return out.reshape(a.shape)
 
 
+def lwe_dot_binary(a: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """Exact <a, s> mod 2^64 for int64 a [..., n] and a BINARY s [n]: four
+    16-bit planes of a times s as f64 matrix-vector products (exact:
+    |partial sums| <= n * 2^16 < 2^53), recombined with wrapping shifts."""
+    n = s.shape[-1]
+    flat = a.reshape(-1, n)
+    sf = s.to(torch.float64)
+    out = torch.empty(flat.shape[0], dtype=torch.int64, device=a.device)
+    for r0 in range(0, flat.shape[0], _MUL_CHUNK):
+        x = flat[r0:r0 + _MUL_CHUNK]
+        planes = torch.stack([(x >> (16 * p)) & 0xFFFF for p in range(4)]).to(torch.float64)
+        q = torch.matmul(planes, sf).to(torch.int64)  # [4, rows]
+        out[r0:r0 + _MUL_CHUNK] = q[0] + (q[1] << 16) + (q[2] << 32) + (q[3] << 48)
+    return out.reshape(a.shape[:-1])
+
+
+def encrypt_lwe(msgs: torch.Tensor, lwe_sk: torch.Tensor, lwe: LweDef,
+                generator: torch.Generator) -> torch.Tensor:
+    """Torus messages int64 [...] -> LWE ciphertexts int64 [..., n+1]:
+    b = <a, s> + m + e (≙ `encryption_u32.encrypt_lwe_u32`)."""
+    a = uniform_torus((*msgs.shape, lwe.dim), generator)
+    b = lwe_dot_binary(a, lwe_sk) + msgs + normal_torus(lwe.std, msgs.shape, generator)
+    return torch.cat([a, b[..., None]], dim=-1)
+
+
 def encrypt_glwe(msgs: torch.Tensor, glwe_sk: torch.Tensor, glwe: GlweDef,
                  generator: torch.Generator) -> torch.Tensor:
     """Torus messages int64 [..., N] -> GLWE ciphertexts int64
@@ -133,6 +159,59 @@ def generate_multibit_bsk(lwe_sk, glwe_sk: torch.Tensor, glwe: GlweDef,
     bits = torch.from_numpy(prods.reshape(-1).astype(np.int64)).to(glwe_sk.device)
     rows = encrypt_ggsw_scalar(bits, glwe_sk, glwe, radix, generator)
     return rows.reshape(ng, ns, *rows.shape[1:])
+
+
+def generate_bsk(lwe_sk, glwe_sk: torch.Tensor, glwe: GlweDef, radix: RadixDecomposition,
+                 generator: torch.Generator) -> torch.Tensor:
+    """Single-bit bootstrap key in the coefficient domain: int64
+    [n0, k+1, l, k+1, N], one GGSW of each LWE key bit (the multi-bit key
+    of g = 1 without its subset axis)."""
+    return generate_multibit_bsk(lwe_sk, glwe_sk, glwe, radix, 1, generator)[:, 0]
+
+
+def pow_k_binary(s: torch.Tensor, k_exp: int) -> torch.Tensor:
+    """s(X^k) for binary polynomials s int64 [..., N] (negacyclic): int64
+    coefficients in {0, 1, -1} (≙ `encryption_u32._pow_k_limb_binary`)."""
+    n = s.shape[-1]
+    j = np.arange(n)
+    dest = torch.from_numpy((j * k_exp) % n).to(s.device)
+    sign = torch.from_numpy(1 - 2 * (((j * k_exp) // n) % 2)).to(s.device)
+    out = torch.zeros_like(s)
+    out[..., dest] = s * sign
+    return out
+
+
+def generate_automorphism_keys(glwe_sk: torch.Tensor, glwe: GlweDef, radix: RadixDecomposition,
+                               generator: torch.Generator) -> torch.Tensor:
+    """The log2(N) GLWE keyswitch keys of the homomorphic trace: int64
+    [log2 N, k, l, k+1, N]; round i (1-based) holds GLEV(s_r(X^k)) for
+    k = N/2^(i-1) + 1 under s (≙ `encryption_u32.generate_automorphism_keys_u32`)."""
+    n = glwe.degree
+    msgs = torch.stack([pow_k_binary(glwe_sk, n // (1 << (i - 1)) + 1)
+                        for i in range(1, glwe.log_degree + 1)])  # [log2 N, k, N]
+    return encrypt_glev(msgs, glwe_sk, glwe, radix, generator)
+
+
+def generate_scheme_switch_key(glwe_sk: torch.Tensor, glwe: GlweDef, radix: RadixDecomposition,
+                               generator: torch.Generator) -> torch.Tensor:
+    """GLEV(s_i (*) s_j) for i, j < k: int64 [k, k, l, k+1, N]
+    (≙ `encryption_u32.generate_scheme_switch_key_u32`)."""
+    k = glwe.size
+    msgs = torch.stack([
+        torch.stack([negacyclic_mul_binary(glwe_sk[min(i, j)], glwe_sk[max(i, j)])
+                     for j in range(k)])
+        for i in range(k)
+    ])  # [k, k, N]
+    return encrypt_glev(msgs, glwe_sk, glwe, radix, generator)
+
+
+def generate_lwe_keyswitch_key(old_sk: torch.Tensor, new_sk: torch.Tensor, new_lwe: LweDef,
+                               radix: RadixDecomposition, generator: torch.Generator) -> torch.Tensor:
+    """LWE keyswitch key int64 [n_old, l, n_new+1]: row i, level j =
+    LWE_new(s_old_i * q/B^(j+1)) (≙ `encryption_u32.generate_lwe_keyswitch_key_u32`)."""
+    shifts = [TORUS_BITS - radix.radix_log * (j + 1) for j in range(radix.count)]
+    msgs = torch.stack([old_sk.to(torch.int64) << sh for sh in shifts], dim=-1)  # [n_old, l]
+    return encrypt_lwe(msgs, new_sk, new_lwe, generator)
 
 
 def encrypt_lwe_np(rng: np.random.Generator, msgs_torus, lwe_sk, lwe: LweDef) -> np.ndarray:

@@ -27,7 +27,7 @@ from torch import nn
 
 from ..params import GlweDef, RadixDecomposition
 from . import fft, torus
-from .bootstrap import bsk_to_freq, monomial_mul, sample_extract
+from .bootstrap import as_tensor, register_spectra, sample_extract, spectra
 from .mad import mad_horner
 from .phase_rot import combine_phase_minus_one, fence, phase_factors_all
 from .rot_decomp import accumulate_decompose
@@ -72,7 +72,7 @@ def blind_rotate_multibit(lut, ct_switched, bsk_freq, glwe: GlweDef,
     if pad:
         a = torch.cat([a, torch.zeros((pad, bb), dtype=a.dtype, device=a.device)], dim=0)
 
-    acc = monomial_mul(lut.expand(kp1, n, bb), 2 * n - b)
+    acc = torus.monomial_mul(lut.expand(kp1, n, bb), 2 * n - b)
     # per-bit (phase - 1) outer-product factors of every step, hoisted
     ph_lo, ph_hi = phase_factors_all(a, n)
     ph_lo = tuple(fence(c.reshape(ng, group, *c.shape[1:])) for c in ph_lo)
@@ -121,20 +121,17 @@ class MultibitBootstrap(nn.Module):
         self.glwe = glwe
         self.radix = radix
         self.group = group
-        bsk = torus.from_u64_np(bsk) if isinstance(bsk, np.ndarray) else bsk
-        lut = torus.from_u64_np(lut) if isinstance(lut, np.ndarray) else lut
+        bsk = as_tensor(bsk)
         kp1, l = glwe.size + 1, radix.count
         want = ((1 << group) - 1, kp1, l, kp1, glwe.degree)
         if tuple(bsk.shape[1:]) != want:
             raise ValueError(f"bsk shape {tuple(bsk.shape)}, want [n_groups, *{want}]")
-        spectra = bsk_to_freq(bsk.to(device))
-        for name, c in zip(("bsk_rh", "bsk_rl", "bsk_ih", "bsk_il"), spectra):
-            self.register_buffer(name, c)
-        self.register_buffer("lut", lut.to(device))
+        register_spectra(self, "bsk", bsk, device)
+        self.register_buffer("lut", as_tensor(lut).to(device))
 
     @property
     def bsk_freq(self):
-        return (self.bsk_rh, self.bsk_rl, self.bsk_ih, self.bsk_il)
+        return spectra(self, "bsk")
 
     def forward(self, ct: torch.Tensor) -> torch.Tensor:
         return programmable_bootstrap_multibit(

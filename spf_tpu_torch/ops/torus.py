@@ -66,6 +66,44 @@ def _shr(x, n: int):
     return (x >> n) & ((1 << (TORUS_BITS - n)) - 1)
 
 
+def add_small(a, c: int):
+    """a + c for a Python int c, any value mod 2^64 (≙ `limb32.add_small`,
+    which takes c as its (hi, lo) limbs)."""
+    return a + _signed(c)
+
+
+def shr_round(a, n: int):
+    """(x >> n) + bit_{n-1}(x) on the u64 bits, n in [0, 64) (≙
+    `limb32.shr_round`)."""
+    if n == 0:
+        return a
+    return _shr(a, n) + (_shr(a, n - 1) & 1)
+
+
+def encode_const(val: int, plain_bits: int) -> int:
+    """val << (64 - plain_bits) mod 2^64, as the Python int in the int64
+    range with the same bits (≙ `limb32.encode_const`, which returns the
+    (hi, lo) limbs)."""
+    return _signed(val << (TORUS_BITS - plain_bits))
+
+
+def _signed(x: int) -> int:
+    x %= 1 << TORUS_BITS
+    return x - (1 << TORUS_BITS) if x >> (TORUS_BITS - 1) else x
+
+
+def monomial_mul(a, t):
+    """a int64 [..., N, B] times X^t, per batch column t int64 [B] (any
+    value; X^(2N) = 1), negacyclic: out[j] = a[s] if s < N else -a[s - N],
+    with s = (j - t) mod 2N (≙ `bootstrap_u32.monomial_mul_u32`)."""
+    n = a.shape[-2]
+    j = torch.arange(n, device=a.device)[:, None]
+    s = torch.remainder(j - t[None, :], 2 * n)  # [N, B]
+    src = torch.where(s < n, s, s - n).expand(a.shape)
+    g = torch.gather(a, -2, src)
+    return torch.where(s >= n, -g, g)
+
+
 def modulus_switch(a, log_chi: int, log_v: int, log_modulus: int):
     """Round x << log_chi to log_modulus - log_v bits, shifted up by
     log_v (≙ `limb32.modulus_switch`). Returns int64 values below

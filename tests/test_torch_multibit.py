@@ -159,7 +159,7 @@ def test_one_group_step_bit_for_bit(material, spectra, reference):
     ct_sw = torus.modulus_switch(torus.from_u64_np(material["ct"]), 0, 0, GLWE.log_degree + 1)
     np.testing.assert_array_equal(ct_sw.numpy(), np.asarray(reference["ct_sw"]).astype(np.int64))
     lut = torus.from_u64_np(material["lut"])[..., None].expand(2, n, B)
-    acc = bootstrap.monomial_mul(lut, 2 * n - ct_sw[-1])
+    acc = torus.monomial_mul(lut, 2 * n - ct_sw[-1])
     _eq_torus(acc, reference["acc0"])
 
     a = torch.cat([ct_sw[:-1], torch.zeros((2, B), dtype=torch.int64)])
