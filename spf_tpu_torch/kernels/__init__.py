@@ -22,6 +22,12 @@ MAD_HORNER_G1 = Kernel("mad", "spf_mad_horner", _MAD_ARGS)
 FREQ_MAD = Kernel("mad", "spf_mad_horner", _MAD_ARGS)
 MAD_BY_GROUP = {0: FREQ_MAD, 1: MAD_HORNER_G1, 2: MAD_HORNER_G2, 3: MAD_HORNER}
 FENCE = Kernel("fence", "spf_fence", "ppip")
+PHASE_MINUS_ONE = Kernel("phase", "spf_phase_minus_one", "p" * 10 + "iip")
+# the probes of spf_tpu_torch.scripts.vpu_probe
+CHAIN = Kernel("probe", "spf_chain", "ppiiip")
+FMA_PROBE = Kernel("probe", "spf_fma_probe", "pppip")
+FMA_PROBE_FMA = Kernel("probe", "spf_fma_probe_fma", "pppip")
+ROLL = Kernel("probe", "spf_roll", "ppiiiip")
 
 ALL = {
     "accumulate_decompose": ACCUMULATE_DECOMPOSE,
@@ -34,6 +40,11 @@ ALL = {
     "mad_horner_g1": MAD_HORNER_G1,
     "freq_mad": FREQ_MAD,
     "fence": FENCE,
+    "phase_minus_one": PHASE_MINUS_ONE,
+    "chain": CHAIN,
+    "fma_probe": FMA_PROBE,
+    "fma_probe_fma": FMA_PROBE_FMA,
+    "roll": ROLL,
 }
 
 

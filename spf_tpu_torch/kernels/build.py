@@ -27,7 +27,7 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("fft", "rot_decomp", "mad", "fence")
+SOURCES = ("fft", "rot_decomp", "mad", "fence", "phase", "probe")
 HEADERS = ("common.cuh", "ds.cuh")
 # -fmad=false: no FP contraction, which would break the ds32 error-free
 # transforms; no fast-math for the same reason

@@ -55,33 +55,36 @@ def multibit_key_products_np(lwe_sk_np, group: int) -> np.ndarray:
     return out
 
 
-def blind_rotate_multibit(lut, ct_switched, bsk_freq, glwe: GlweDef,
-                          radix: RadixDecomposition, group: int):
-    """lut int64 [k+1, N, 1 or B], ct_switched int64 [n0+1, B] with
-    phases < 2N, bsk_freq 4 planes [n_groups, 2^g-1, k+1, l, k+1, K] ->
-    the rotated accumulator, int64 [k+1, N, B]."""
-    n = glwe.degree
-    kp1 = glwe.size + 1
-    a = ct_switched[:-1]  # [n0, B]
-    b = ct_switched[-1]  # [B]
-    bb = ct_switched.shape[-1]
-    ng = bsk_freq[0].shape[0]
-    assert bsk_freq[0].shape[1] == (1 << group) - 1, (bsk_freq[0].shape, group)
-    pad = ng * group - a.shape[0]
-    assert 0 <= pad < group, (ng, group, a.shape)
+def padded_mask(ct_switched, group: int):
+    """The mask rows a [n0, B] of switched ciphertexts [n0+1, B], padded
+    with zero rows to a multiple of g (a padded bit contributes
+    phase(0) - 1 = 0)."""
+    a = ct_switched[:-1]
+    pad = n_groups(a.shape[0], group) * group - a.shape[0]
     if pad:
-        a = torch.cat([a, torch.zeros((pad, bb), dtype=a.dtype, device=a.device)], dim=0)
+        a = torch.cat([a, a.new_zeros((pad, a.shape[1]))], dim=0)
+    return a
 
-    acc = torus.monomial_mul(lut.expand(kp1, n, bb), 2 * n - b)
-    # per-bit (phase - 1) outer-product factors of every step, hoisted
+
+def group_phases(a, n: int, group: int):
+    """The per-bit (phase - 1) outer-product factors of every step of the
+    padded mask a [ng*g, B]: (lo, hi), 4 planes [ng, g, Klo, B] and
+    [ng, g, Khi, B]."""
+    ng = a.shape[0] // group
     ph_lo, ph_hi = phase_factors_all(a, n)
-    ph_lo = tuple(fence(c.reshape(ng, group, *c.shape[1:])) for c in ph_lo)
-    ph_hi = tuple(fence(c.reshape(ng, group, *c.shape[1:])) for c in ph_hi)
+    return (tuple(c.reshape(ng, group, *c.shape[1:]) for c in ph_lo),
+            tuple(c.reshape(ng, group, *c.shape[1:]) for c in ph_hi))
 
-    zero = torch.zeros((kp1, n, bb), dtype=torch.float32, device=a.device)
+
+def rotate_groups(acc, ph_lo, ph_hi, bsk_freq, radix: RadixDecomposition, group: int):
+    """The group steps of the multi-bit rotation: acc int64 [k+1, N, B]
+    (the LUT rotated by -b), the phase factors of `group_phases`, bsk_freq
+    4 planes [n_groups, 2^g-1, k+1, l, k+1, K] -> the rotated accumulator."""
+    kp1, n, bb = acc.shape
+    zero = torch.zeros((kp1, n, bb), dtype=torch.float32, device=acc.device)
     prod = (zero, zero)
-    digits_lo = torch.zeros((radix.count, kp1, n, bb), dtype=torch.float32, device=a.device)
-    for t in range(ng):
+    digits_lo = torch.zeros((radix.count, kp1, n, bb), dtype=torch.float32, device=acc.device)
+    for t in range(bsk_freq[0].shape[0]):
         digits_f, acc = accumulate_decompose(acc, prod, radix)
         dfft = fft.fwd_ds(digits_f, digits_lo)
         u = [
@@ -94,6 +97,24 @@ def blind_rotate_multibit(lut, ct_switched, bsk_freq, glwe: GlweDef,
         row = tuple(c[t] for c in bsk_freq)  # [2^g-1, k+1, l, k+1, K]
         prod = fft.inv_ds(mad_horner(dfft, row, u, group))
     return torus.add(acc, torus.from_ds(*prod))
+
+
+def blind_rotate_multibit(lut, ct_switched, bsk_freq, glwe: GlweDef,
+                          radix: RadixDecomposition, group: int):
+    """lut int64 [k+1, N, 1 or B], ct_switched int64 [n0+1, B] with
+    phases < 2N, bsk_freq 4 planes [n_groups, 2^g-1, k+1, l, k+1, K] ->
+    the rotated accumulator, int64 [k+1, N, B]."""
+    n = glwe.degree
+    kp1 = glwe.size + 1
+    bb = ct_switched.shape[-1]
+    assert bsk_freq[0].shape[1] == (1 << group) - 1, (bsk_freq[0].shape, group)
+    a = padded_mask(ct_switched, group)
+    assert a.shape[0] == bsk_freq[0].shape[0] * group, (bsk_freq[0].shape, group, a.shape)
+
+    acc = torus.monomial_mul(lut.expand(kp1, n, bb), 2 * n - ct_switched[-1])
+    # per-bit (phase - 1) outer-product factors of every step, hoisted
+    ph_lo, ph_hi = (tuple(fence(c) for c in x) for x in group_phases(a, n, group))
+    return rotate_groups(acc, ph_lo, ph_hi, bsk_freq, radix, group)
 
 
 def programmable_bootstrap_multibit(ct, lut, bsk_freq, glwe: GlweDef,
