@@ -15,7 +15,9 @@ Phases, each printing one JSON line with its seconds:
    probe kernel (cuobjdump -sass);
 3. each kernel against its plain PyTorch version on the card, at the
    DEFAULT_128 shapes of the paths below (bit for bit; the rotation
-   kernels also at the edge values of t), with both timed (device time:
+   kernels also at the edge values of t; the MADs with random phase factor
+   halves, Klo = Khi = 32; `fence` also on odd lengths at each offset
+   within 16 bytes and below one vector), with both timed (device time:
    the kernel queued behind a spin kernel, rotating through copies of its
    inputs that exceed the L2 cache; a plain version of thousands of
    launches summed by torch.profiler). Also the kernels of the probes:
@@ -33,7 +35,9 @@ Phases, each printing one JSON line with its seconds:
    `MultibitBootstrap` call with every kernel's launch count read around
    it, decryption on the host (256/256 correct, noise margin >= 8 bits),
    then the median PBS/s of 5 calls (information only) and one profiled
-   call: its device time, by kernel, and its share of the wall time;
+   call: its device time, by kernel, its share of the wall time, and the
+   device time and launches of PyTorch's kernels in it (the glue: fewer
+   than 10 launches a group step, or the phase combine still runs);
 6. path 2, the single-bit PBS (`Bootstrap`) at DEFAULT_128, batch 256, in
    each of its forms (plain, fuse_rot, phase_rot), read as phase 5
    (3 timed calls each);
@@ -57,8 +61,10 @@ Then one {"kernels": [...]} line (per kernel: route, source, the TPU
 kernel it replaces, launches on the paths (summed, and by path), error
 against the plain version, kernel / plain / library / bound times; the
 probes' `opaque_materialize` is the fence kernel's row) and,
-last, one {"ok": true, "device": {...}} line. Any failure raises and the
-script exits non-zero; without a CUDA device it exits 1 and prints no
+last, one {"ok": true, "device": {...}} line. A bound is the larger of the
+bytes over the HBM rate and the instructions of the cheapest form with the
+same bits over the card's issue rate for them (f32: 128 a clock per SM at
+the maximum SM clock). Any failure raises and the script exits non-zero; without a CUDA device it exits 1 and prints no
 result.
 """
 
@@ -76,7 +82,8 @@ import time
 import numpy as np
 import torch
 
-from spf_tpu_torch.scripts import card, chain_peak_per_s, device_ms, emit, profiled_device_ms
+from spf_tpu_torch.scripts import (card, chain_peak_per_s, device_ms, emit, profiled_device_ms,
+                                   profiled_kernels)
 
 SEED = 20260416
 BITS = 3  # message bits of the LUT, as bench.py
@@ -88,17 +95,26 @@ MIN_CYCLE_MARGIN_BITS = 2.0
 TPU_CYCLE_MARGIN_BITS = 3.1  # BENCH_SUITE.json cbs_cycle: a correctness reference only
 FORMS = {"plain": (False, False), "fuse_rot": (True, False), "phase_rot": (False, True)}
 
-# NVIDIA H100 SXM data sheet: HBM3 rate, f32 rate outside the tensor
-# cores and L2 size; roofline bounds are stated against the rates
+# NVIDIA H100 SXM data sheet: HBM3 rate and L2 size; roofline bounds are
+# stated against the rate
 HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
 L2_BYTES = 50 * 2**20
 
-# f32 operations of the ds32 primitives (ops/ds.py) in the cheapest form
-# that gives the same bits: TwoProd as p = a*b, e = fma(a, b, -p) (an fma
-# counts 2, a negation 0). add 11, sub 11, mul 10; complex: cadd 22,
-# csub 22, cmul 62. The kernels' Veltkamp TwoProd does more work than this.
-CADD, CSUB, CMUL, DS_ADD = 22, 22, 62, 11
+# f32 instructions of the ds32 primitives (ops/ds.py) in the cheapest form
+# that gives the same bits: TwoProd as p = a*b, e = fma(a, b, -p), one
+# instruction each, a negation folded into its add (0). add 11, sub 11,
+# mul 9; complex: cadd 22, csub 22, cmul 58; the phase combine (cmul, then
+# -1 on the real part) 69. Operation bounds divide instructions by the
+# card's f32 issue rate, 128 a clock per SM (`chain_peak_per_s(1, {"fma": 1},
+# hw)`): each FADD / FMUL / FFMA yields one result per lane and clock.
+CADD, CSUB, CMUL, DS_ADD = 22, 22, 58, 11
+COMBINE = CMUL + DS_ADD
+# the port's kernels (csrc/*.cu) by name; every other kernel in a profile
+# is PyTorch's: the glue around them
+PORT_KERNELS = ("accumulate_decompose_kernel", "rotate_sub_decompose_kernel",
+                "rotate_sub_decompose_acc_kernel", "fwd_ds_kernel", "inv_ds_kernel",
+                "mad_horner_kernel", "copy_kernel", "phase_kernel", "chain_kernel",
+                "fma_probe_kernel", "fma_probe_fma_kernel", "roll_kernel")
 
 
 def clone_args(args):
@@ -116,7 +132,7 @@ def cold_copies(args, nbytes: int) -> list:
     return [args] + [clone_args(args) for _ in range(n - 1)]
 
 
-def bound_ms(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S):
+def bound_ms(nbytes: float, ops: float, ops_per_s: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -188,36 +204,46 @@ def phase_kernels(gen, hw):
     dfft = fft.fwd_ds(digits, zeros)
     digits_cbs = torch.randint(-(1 << 7), 1 << 7, (l_cbs, kp1, n, b), generator=gen, device=dev).float()
     dfft_cbs = fft.fwd_ds(digits_cbs, torch.zeros_like(digits_cbs))
-    # fence: one of the hoisted factor planes [n_groups, g, Klo, B]
+    # fence: one of the hoisted factor planes [n_groups, g, Klo, B]; also an
+    # odd length at each offset within 16 bytes, and a length below one vector
     factors = randn(n_groups(DEFAULT_128.l0_params.dim, GROUP), GROUP, 1 << (logk // 2), b)
+    flat = factors.view(-1)
+    fence_extra = [(flat[1:],), (flat[2:-1],), (flat[3:],), (flat[:-1],), (flat[5:7],)]
+    # the MADs' phase factor halves: Klo = Khi = 32, as the paths make them
+    klo = 1 << (logk // 2)
+    khi = k // klo
 
     fft_ops = p_fwd * b * (CMUL * k + (CADD + CSUB + CMUL) * (k // 2) * logk)
     inv_ops = kp1 * b * (CMUL * k + (CADD + CSUB + CMUL) * (k // 2) * logk)
 
     def mad_case(name, group, d):
-        """mad_horner's g-instance (g = 0: freq_mad) on digit spectra d."""
+        """mad_horner's g-instance (g = 0: freq_mad) on digit spectra d,
+        with random phase factor halves for g >= 1."""
         ll = d[0].shape[0]
         ns = max(1, (1 << group) - 1)
         row_shape = (kp1, ll, kp1, k) if group == 0 else (ns, kp1, ll, kp1, k)
         row = spectrum(*row_shape, exp=60)
-        horner = kp1 * (ns * CMUL + (ns - 1) * CADD) if group else 0
+        horner = kp1 * (ns * CMUL + (ns - 1) * CADD) + group * COMBINE if group else 0
         if group == 0:
             kernel, plain, args = mad.freq_mad, mad.freq_mad_plain, (d, row)
         else:
-            def kernel(d_, r_, u_):
-                return mad.mad_horner(d_, r_, u_, group)
+            def kernel(d_, r_, h_):
+                return mad.mad_horner(d_, r_, h_, group)
 
-            def plain(d_, r_, u_):
-                return mad.mad_horner_plain(d_, r_, u_, group)
+            def plain(d_, r_, h_):
+                return mad.mad_horner_combine_plain(d_, r_, h_, group)
 
-            args = (d, row, spectrum(group, k, b, exp=0))
+            args = (d, row, (spectrum(group, klo, b, exp=0), spectrum(group, khi, b, exp=0)))
         return dict(
             name=name, source="spf_tpu_torch/csrc/mad.cu", replaces="spf_tpu/ops/mad_pallas.py:94",
             note=f"mad.cu's g = {group} instance" + (
                 "; in place of the XLA glue freq_mad (spf_tpu/ops/bootstrap_u32.py:161)"
-                if group == 0 else ""),
+                if group == 0 else
+                "; also forms the g per-bit (phase - 1) factors from the step's halves "
+                "(Klo = Khi = 32), the combine XLA fuses on the TPU (spf_tpu/ops/multibit.py:213-245)"),
             kernel=kernel, plain=plain, args=args,
-            nbytes=4 * 4 * (ll * kp1 * k * b + ns * kp1 * ll * kp1 * k + group * k * b + kp1 * k * b),
+            nbytes=4 * 4 * (ll * kp1 * k * b + ns * kp1 * ll * kp1 * k + group * (klo + khi) * b
+                            + kp1 * k * b),
             ops=k * b * (ns * kp1 * ll * kp1 * (CMUL + CADD) + horner),
         )
 
@@ -285,6 +311,7 @@ def phase_kernels(gen, hw):
             plain_is_one_launch=True,  # clone: timed as the kernel is
             library=lambda x: x.clone(),
             args=(factors,),
+            extra_args=fence_extra,
             nbytes=2 * 4 * factors.numel(),
             ops=0,
         ),
@@ -295,6 +322,9 @@ def phase_kernels(gen, hw):
     next(c for c in cases if c["name"] == "fwd_ds")["extra_args"] = [torus.to_ds(tor)]
 
     cases += phase_and_probe_cases(gen, hw)
+    f32_per_s = chain_peak_per_s(1, {"fma": 1}, hw)  # one f32 instruction a lane and clock
+    for c in cases:
+        c.setdefault("ops_per_s", f32_per_s)
     return merge_rows(cases, [measure(c) for c in cases])
 
 
@@ -408,7 +438,7 @@ def measure(c) -> dict:
             / len(plain_copies)
     library_ms = device_ms(c["library"], copies, 50)[0] if "library" in c else None
     del copies
-    bms, by = bound_ms(c["nbytes"], c["ops"], c.get("ops_per_s", F32_OPS_PER_S))
+    bms, by = bound_ms(c["nbytes"], c["ops"], c["ops_per_s"])
     return dict(
         name=c["name"], route="cuda", source=c["source"], replaces=c["replaces"],
         bitexact=exact, max_abs_err=err, ms=kernel_ms, kernel_ms=kernel_ms,
@@ -598,15 +628,19 @@ def drive(fn, want: dict, name: str):
 
 def wall_and_device(fn, calls: int):
     """Wall seconds of `calls` synchronised calls, and one profiled call's
-    device ms and top kernels."""
+    device ms, top 8 kernels by device ms, and the device ms and launches of
+    every kernel that is not the port's (the glue)."""
     times = []
     for _ in range(calls):
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-    device_call_ms, by_kernel = profiled_device_ms(fn)
-    return times, device_call_ms, by_kernel
+    kernels = profiled_kernels(fn)
+    ranked = sorted(kernels.items(), key=lambda kv: -kv[1][0])
+    glue = [v for name, v in kernels.items() if name.split("<")[0] not in PORT_KERNELS]
+    return (times, sum(ms for ms, _ in kernels.values()), {n: ms for n, (ms, _) in ranked[:8]},
+            dict(ms=sum(ms for ms, _ in glue), launches=sum(n for _, n in glue)))
 
 
 def phase_main_path():
@@ -643,7 +677,7 @@ def phase_main_path():
 
     sk_flat = glwe_sk.cpu().numpy().reshape(-1).astype(np.uint64)
     n_correct, margin = decode(out, sk_flat, expected)
-    times, device_call_ms, by_kernel = wall_and_device(lambda: pbs(ct), 5)
+    times, device_call_ms, by_kernel, glue = wall_and_device(lambda: pbs(ct), 5)
     med = statistics.median(times)
     res = dict(
         phase="main_path", path="multi-bit PBS", params="DEFAULT_128", group=GROUP, batch=BATCH,
@@ -652,11 +686,16 @@ def phase_main_path():
         launches={k: v for k, v in launches.items() if v}, pbs_call_s=times,
         pbs_per_s_median=BATCH / med, device_ms_per_call=device_call_ms,
         device_busy_share=device_call_ms / 1e3 / med, device_ms_by_kernel=by_kernel,
-        peak_device_mem_gib=peak_gib,
+        glue=glue, peak_device_mem_gib=peak_gib,
     )
     emit(res)
     if tuple(out.shape) != (glwe.size * glwe.degree + 1, BATCH):
         raise AssertionError(f"output shape {tuple(out.shape)}")
+    # the phase combine ran ~60 PyTorch operators a bit, g bits a group step;
+    # the MAD kernel forms the factors now, so no glue may run in the loop
+    if glue["launches"] >= 10 * ng:
+        raise AssertionError(f"main path: {glue['launches']} launches of PyTorch kernels in one "
+                             f"call ({ng} group steps): glue still runs in the loop")
     if n_correct != BATCH or margin < MIN_MARGIN_BITS:
         raise AssertionError(f"main path: {n_correct}/{BATCH} correct, margin {margin:.2f} bits")
     return {"multi-bit PBS": launches}
@@ -701,7 +740,7 @@ def phase_single_bit():
         convert_s = time.perf_counter() - t0
         out, first_s, launches, peak_gib = drive(lambda: pbs(ct), wants[form], f"path 2 ({form})")
         n_correct, margin = decode(out, sk_flat, expected)
-        times, device_call_ms, by_kernel = wall_and_device(lambda: pbs(ct), 3)
+        times, device_call_ms, by_kernel, glue = wall_and_device(lambda: pbs(ct), 3)
         med = statistics.median(times)
         res[form] = dict(
             out_shape=list(out.shape), key_conversion_s=convert_s, first_call_s=first_s,
@@ -709,7 +748,7 @@ def phase_single_bit():
             launches={k: v for k, v in launches.items() if v}, pbs_call_s=times,
             pbs_per_s_median=BATCH / med, device_ms_per_call=device_call_ms,
             device_busy_share=device_call_ms / 1e3 / med, device_ms_by_kernel=by_kernel,
-            peak_device_mem_gib=peak_gib,
+            glue=glue, peak_device_mem_gib=peak_gib,
         )
         by_path[f"single-bit PBS, {form}"] = launches
         if tuple(out.shape) != (glwe.size * glwe.degree + 1, BATCH) or n_correct != BATCH \
@@ -755,7 +794,7 @@ def phase_cycle():
     )
     out, first_s, launches, peak_gib = drive(lambda: cycle(ct), want, "path 3 (conversion cycle)")
     n_correct, margin = decode(out, lwe_sk.astype(np.uint64), bits_in, bits=1)
-    times, device_call_ms, by_kernel = wall_and_device(lambda: cycle(ct), 3)
+    times, device_call_ms, by_kernel, glue = wall_and_device(lambda: cycle(ct), 3)
     med = statistics.median(times)
     breakdown = cycle_breakdown(cycle, ct)
     res = dict(
@@ -767,7 +806,7 @@ def phase_cycle():
         launches={k: v for k, v in launches.items() if v}, cycle_call_s=times,
         cycles_per_s_median=BATCH / med, device_ms_per_call=device_call_ms,
         device_busy_share=device_call_ms / 1e3 / med, device_ms_by_kernel=by_kernel,
-        peak_device_mem_gib=peak_gib, stages=breakdown,
+        glue=glue, peak_device_mem_gib=peak_gib, stages=breakdown,
     )
     emit(res)
     if tuple(out.shape) != (lwe.dim + 1, BATCH):
@@ -799,7 +838,7 @@ def cycle_breakdown(cycle, ct) -> dict:
     }
     out = {}
     for name, fn in stages.items():
-        times, device_call_ms, by_kernel = wall_and_device(fn, 2)
+        times, device_call_ms, by_kernel, _ = wall_and_device(fn, 2)
         out[name] = dict(wall_s=times, device_ms=device_call_ms,
                          top_kernels=dict(list(by_kernel.items())[:3]))
     return out
@@ -850,9 +889,10 @@ def phase_probes():
     return {"probes": launches}, res["opaque_materialize_launches"]
 
 
-def sass_histogram(path: str) -> dict:
-    """Opcode counts of each chain kernel in a built library (cuobjdump
-    -sass): the evidence that no chain was folded into a closed form."""
+def sass_histogram(path: str, kernel: str) -> dict:
+    """Opcode counts of each instance of `kernel` in a built library
+    (cuobjdump -sass): for the chains, the evidence that no chain was
+    folded into a closed form; for the MAD, its instructions by kind."""
     from spf_tpu_torch.kernels import build as kbuild
 
     exe = shutil.which("cuobjdump") or os.path.join(os.path.dirname(kbuild.nvcc_path()),
@@ -869,7 +909,7 @@ def sass_histogram(path: str) -> dict:
         m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_]*)", line)
         if cur is not None and m:
             funcs[cur][m.group(1)] = funcs[cur].get(m.group(1), 0) + 1
-    return {name: ops for name, ops in funcs.items() if "chain_kernel" in name}
+    return {name: ops for name, ops in funcs.items() if kernel in name}
 
 
 def timed(name: str, fn):
@@ -901,7 +941,9 @@ def main() -> int:
         with open(f"{kbuild.BUILD_DIR}/{name}.log", errors="replace") as fh:
             ptxas[name] = [ln.strip() for ln in fh if "registers" in ln or "spill" in ln]
     emit(dict(phase="build", seconds=time.perf_counter() - t0, per_source_s=per_source,
-              ptxas=ptxas, chain_sass_opcodes=sass_histogram(kbuild.library_path("probe"))))
+              ptxas=ptxas,
+              chain_sass_opcodes=sass_histogram(kbuild.library_path("probe"), "chain_kernel"),
+              mad_sass_opcodes=sass_histogram(kbuild.library_path("mad"), "mad_horner_kernel")))
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     results = timed("kernels_vs_plain", lambda: phase_kernels(gen, hw))

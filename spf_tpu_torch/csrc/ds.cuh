@@ -4,9 +4,13 @@
 // and the plain PyTorch version agree bit for bit.
 //
 // Every source is compiled with -fmad=false and without fast-math: a
-// contracted a*b - p would break the error-free transforms. TwoProd uses
-// the Veltkamp split as the plain version does (an fma(a, b, -p) would
-// give the same error term except when a partial product underflows).
+// contracted a*b - p, or an fma in ds_mul's cross terms, would change the
+// roundings the error-free transforms depend on. The one fma is explicit:
+// TwoProd's error is __fmaf_rn(a, b, -p), the exact a*b - p rounded once
+// (an intrinsic, so -fmad=false leaves it alone). The plain version rounds
+// the same exact value once through f64, so the two agree everywhere,
+// subnormals included; the reference's Veltkamp split gives the same bits
+// wherever no partial product underflows, in 2 instructions instead of 17.
 #pragma once
 
 struct ds2 {
@@ -31,19 +35,9 @@ __device__ __forceinline__ ds2 quick_two_sum(float a, float b) {
   return {s, err};
 }
 
-__device__ __forceinline__ ds2 split(float a) {
-  float t = 4097.0f * a;
-  float hi = t - (t - a);
-  float lo = a - hi;
-  return {hi, lo};
-}
-
 __device__ __forceinline__ ds2 two_prod(float a, float b) {
   float p = a * b;
-  ds2 x = split(a);
-  ds2 y = split(b);
-  float err = ((x.h * y.h - p) + x.h * y.l + x.l * y.h) + x.l * y.l;
-  return {p, err};
+  return {p, __fmaf_rn(a, b, -p)};
 }
 
 __device__ __forceinline__ ds2 ds_add(float ahi, float alo, float bhi, float blo) {

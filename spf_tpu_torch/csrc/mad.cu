@@ -1,43 +1,71 @@
 // Multi-bit MAD + Horner subset phases, the frequency-domain half of a
-// blind-rotation step.
+// blind-rotation step, with the step's (phase - 1) factors formed inside.
 //
 // Replaces the Pallas kernel spf_tpu/ops/mad_pallas.py::mad_horner_fused
-// (:94). For every (bin, batch column) it forms the 2^g - 1 subset MADs
-// of the l*(k+1) digit spectra with that subset's bootstrap-key row, then
-// their Horner-factored sum with the per-bit (phase - 1) factors u_j:
+// (:94) together with the per-bit phase combine that XLA fuses around it
+// on the TPU (spf_tpu/ops/multibit.py:213-245). For every (bin, batch
+// column) it forms the per-bit factors u_j from the step's hoisted
+// outer-product halves, as combine_phase_minus_one does
+// (spf_tpu_torch/ops/phase_rot.py):
+//
+//   u_j = cmul(hi[j][bin / Klo], lo[j][bin % Klo]), then -1 on the real part
+//
+// then the 2^g - 1 subset MADs of the l*(k+1) digit spectra with that
+// subset's bootstrap-key row, then their Horner-factored sum:
 //
 //   R(j, base) = u_j (x) (M[base|2^j] + R(j+1, base|2^j)) + R(j+1, base)
 //
-// in the evaluation order of _mad_horner_body (mad_pallas.py:51-90), so
-// it agrees with the plain version (freq_mad per subset +
-// nested_subset_sum) bit for bit. Unlike the TPU kernel it takes any K and
-// B, not only multiples of 128. Built for k+1 = 2 (every parameter set's
-// blind rotation has k = 1) and g = 3 (the multi-bit PBS), g = 2 (the
+// in the evaluation order of _mad_horner_body (mad_pallas.py:51-90), so it
+// agrees with the plain version (combine_phase_minus_one per bit, freq_mad
+// per subset, nested_subset_sum) bit for bit. It takes any B and any
+// K = Klo * Khi up to 65,535, not only multiples of 128. Built for k+1 = 2 (every parameter
+// set's blind rotation has k = 1) and g = 3 (the multi-bit PBS), g = 2 (the
 // multi-bit rotation inside circuit bootstrapping, l = 4) and g = 1 (the
 // single-bit phase_rot step: one MAD times (phase - 1), the order of
-// bootstrap_u32.py:278-280). g = 0 is the plain MAD of one key row with
-// no phase (freq_mad, bootstrap_u32.py:161; XLA glue on the TPU), the
+// bootstrap_u32.py:278-280). g = 0 is the plain MAD of one key row with no
+// phase (freq_mad, bootstrap_u32.py:161; XLA glue on the TPU), the
 // frequency-domain half of the single-bit plain and fuse_rot steps.
 //
-// What bounds it on an H100: f32 throughput. At the main path's shapes (g = 3,
-// k+1 = 2, l = 2, K = 1024, B = 256) it moves ~39 MB but needs
-// 7 * 2 * 2 * 2 * 84 + 2 * (7 * 62 + 6 * 22) ~ 5.8k f32 operations per
-// element (a ds complex multiply with an fma TwoProd is 62, an add 22;
-// ~1.5 GFLOP, ~23 us at 67 TFLOP/s vs ~12 us of memory). The Veltkamp
-// TwoProd used here does about 1.7x that work for the same bits. Design:
-// one thread per (bin, column); the 2^g - 1 subset accumulators of both
-// output planes live in registers; neighbouring threads take neighbouring
-// columns (coalesced spectra, phases and outputs) and share one bin, so
-// the key-row reads are warp broadcasts.
+// What bounds it on an H100: f32 instruction issue. At the main path's
+// shapes (g = 3, k+1 = 2, l = 2, K = 1024, B = 256) it moves ~27 MB (~8 us
+// at 3.35 TB/s) but issues 4 * 14 * (58 + 22) + 2 * (7 * 58 + 6 * 22) +
+// 3 * 69 = 5,763 f32 instructions per (bin, column) (a ds complex multiply
+// is 58 with the fma TwoProd, an add 22, a combine 69): 1.5 G, ~45 us at
+// 128 a clock per SM. Almost all are single FADD / FMUL, one result per
+// lane and clock, so the flop rate (which counts an FFMA twice) halves
+// this bound. Tensor cores cannot help: ds32 needs exact f32 products,
+// which TF32 and bf16 do not give.
+//
+// Design: the instruction count first. TwoProd is one fma (ds.cuh), 2
+// instructions where the Veltkamp split took 17; the combine costs 69 per
+// bit in registers instead of a 12.6 MB intermediate and ~60 eager
+// operators a bit. A block is up to 128 columns of one bin (grid: column
+// tiles x bins). It stages the bin's key rows in shared memory as 16-byte
+// (re hi, re lo, im hi, im lo) entries, so each key read of the MAD is one
+// broadcast 16-byte shared load at a fixed offset instead of four
+// warp-broadcast global loads and their 64-bit address arithmetic. One
+// thread per (bin, column): the 2^g - 1 subset accumulators of both output
+// planes (56 floats at g = 3) and the g factors live in registers, with no
+// spills; neighbouring threads take neighbouring columns (coalesced
+// spectra, halves and outputs). At g = 3 the (i, j) loop of the MAD stays
+// rolled: unrolled over i, the kernel's code (~4k instructions) outgrows
+// the instruction cache, which cost 12% on an H100; at g <= 2 the unrolled
+// form is the faster one.
 
 #include "common.cuh"
 #include "ds.cuh"
 
 namespace {
 
+constexpr int THREADS = 128;
+// multiply-adds per (i, j) above which the (i, j) loop stays rolled
+constexpr int ROLL_ABOVE = 8;
+
 struct Planes4 {
   const float *rh, *rl, *ih, *il;
-  __device__ __forceinline__ dsc load(size_t i) const { return {rh[i], rl[i], ih[i], il[i]}; }
+  __device__ __forceinline__ dsc load(size_t i) const {
+    return {__ldg(rh + i), __ldg(rl + i), __ldg(ih + i), __ldg(il + i)};
+  }
 };
 
 // R(J, BASE) over the subset MADs M[0 .. 2^G - 2] of one output plane
@@ -56,14 +84,40 @@ struct Horner {
 };
 
 template <int KP1, int G>
-__global__ void mad_horner_kernel(Planes4 dfft, Planes4 row, Planes4 u, float* __restrict__ orh,
-                                  float* __restrict__ orl, float* __restrict__ oih,
-                                  float* __restrict__ oil, int l, int k, int b) {
+__global__ void __launch_bounds__(THREADS)
+    mad_horner_kernel(Planes4 dfft, Planes4 row, Planes4 lo, Planes4 hi, float* __restrict__ orh,
+                      float* __restrict__ orl, float* __restrict__ oih, float* __restrict__ oil,
+                      int l, int k, int b, int klo) {
   constexpr int NS = G == 0 ? 1 : (1 << G) - 1;
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;  // bin * B + column
-  if (idx >= k * b) return;
-  const int bin = idx / b;
+  constexpr int PER_IJ = NS * KP1;  // key-row values per (input plane, digit level)
+  extern __shared__ float4 key[];   // [l][k+1][NS][k+1]: this bin's key rows
+  const int bin = blockIdx.y;
+  const int col = blockIdx.x * THREADS + threadIdx.x;
+
+  // the block's bin's key rows, row[m, i, j, o] -> key[(j * KP1 + i) * PER_IJ + m * KP1 + o]
+  for (int e = threadIdx.x; e < PER_IJ * KP1 * l; e += THREADS) {
+    const int o = e % KP1, m = e / KP1 % NS, i = e / PER_IJ % KP1, j = e / (PER_IJ * KP1);
+    const dsc r = row.load((size_t)(((m * KP1 + i) * l + j) * KP1 + o) * k + bin);
+    key[e] = make_float4(r.rh, r.rl, r.ih, r.il);
+  }
+  __syncthreads();
+  if (col >= b) return;
   const size_t plane = (size_t)k * b;
+  const size_t idx = (size_t)bin * b + col;
+
+  // u_j = cmul(hi[j][bin / Klo], lo[j][bin % Klo]) - 1 (combine_phase_minus_one)
+  dsc uu[G == 0 ? 1 : G];
+  if constexpr (G > 0) {
+    const int khi = k / klo;
+    const size_t lo_at = (size_t)(bin % klo) * b + col;
+    const size_t hi_at = (size_t)(bin / klo) * b + col;
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      const dsc f = cmul(hi.load((size_t)j * khi * b + hi_at), lo.load((size_t)j * klo * b + lo_at));
+      const ds2 re = ds_add(f.rh, f.rl, -1.0f, 0.0f);
+      uu[j] = {re.h, re.l, f.ih, f.il};
+    }
+  }
 
   dsc mads[NS][KP1];
 #pragma unroll
@@ -72,24 +126,28 @@ __global__ void mad_horner_kernel(Planes4 dfft, Planes4 row, Planes4 u, float* _
     for (int o = 0; o < KP1; ++o) mads[m][o] = {0.f, 0.f, 0.f, 0.f};
 
   // MAD: for each input plane i, digit level j: acc[m][o] += d[j, i] * row[m, i, j, o]
+  const auto step = [&](int i, int j) {
+    const dsc d = dfft.load((size_t)(j * KP1 + i) * plane + idx);
+    const float4* kij = key + (j * KP1 + i) * PER_IJ;
 #pragma unroll
-  for (int i = 0; i < KP1; ++i) {
-    for (int j = 0; j < l; ++j) {
-      const dsc d = dfft.load((size_t)(j * KP1 + i) * plane + idx);
+    for (int m = 0; m < NS; ++m) {
 #pragma unroll
-      for (int m = 0; m < NS; ++m) {
-#pragma unroll
-        for (int o = 0; o < KP1; ++o) {
-          const size_t r = ((((size_t)m * KP1 + i) * l + j) * KP1 + o) * k + bin;
-          mads[m][o] = cadd(mads[m][o], cmul(d, row.load(r)));
-        }
+      for (int o = 0; o < KP1; ++o) {
+        const float4 r = kij[m * KP1 + o];  // one broadcast 16-byte shared load
+        mads[m][o] = cadd(mads[m][o], cmul(d, {r.x, r.y, r.z, r.w}));
       }
     }
-  }
-
-  dsc uu[G == 0 ? 1 : G];
+  };
+  if constexpr (NS * KP1 > ROLL_ABOVE) {
+    // one loop body of NS * KP1 multiply-adds: unrolled over i, the kernel's
+    // code outgrows the instruction cache
+#pragma unroll 1
+    for (int ij = 0; ij < KP1 * l; ++ij) step(ij / l, ij % l);
+  } else {
 #pragma unroll
-  for (int j = 0; j < G; ++j) uu[j] = u.load((size_t)j * plane + idx);
+    for (int i = 0; i < KP1; ++i)
+      for (int j = 0; j < l; ++j) step(i, j);
+  }
 
 #pragma unroll
   for (int o = 0; o < KP1; ++o) {
@@ -111,33 +169,41 @@ __global__ void mad_horner_kernel(Planes4 dfft, Planes4 row, Planes4 u, float* _
 }
 
 template <int KP1, int G>
-int launch(const Planes4& d, const Planes4& r, const Planes4& u, float* o0, float* o1, float* o2,
-           float* o3, int l, int k, int b, cudaStream_t stream) {
-  const int threads = 128;
-  const int blocks = (int)(((long long)k * b + threads - 1) / threads);
-  mad_horner_kernel<KP1, G><<<blocks, threads, 0, stream>>>(d, r, u, o0, o1, o2, o3, l, k, b);
+int launch(const Planes4& d, const Planes4& r, const Planes4& lo, const Planes4& hi, float* o0,
+           float* o1, float* o2, float* o3, int l, int k, int b, int klo, cudaStream_t stream) {
+  constexpr int NS = G == 0 ? 1 : (1 << G) - 1;
+  const size_t smem = sizeof(float4) * NS * KP1 * KP1 * l;
+  if (k > 65535 || smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((b + THREADS - 1) / THREADS, k);
+  mad_horner_kernel<KP1, G><<<grid, THREADS, smem, stream>>>(d, r, lo, hi, o0, o1, o2, o3, l, k, b,
+                                                            klo);
   return spf_last_error();
 }
 
 }  // namespace
 
-// dfft 4 x [l, k+1, K, B]; row 4 x [2^g-1, k+1, l, k+1, K]; u 4 x [g, K, B]
-// -> out 4 x [k+1, K, B]. g = 0: row 4 x [k+1, l, k+1, K], u unread.
+// dfft 4 x [l, k+1, K, B]; row 4 x [2^g-1, k+1, l, k+1, K]; the step's
+// phase factor halves lo 4 x [g, Klo, B] and hi 4 x [g, K / Klo, B]
+// -> out 4 x [k+1, K, B]. g = 0: row 4 x [k+1, l, k+1, K], lo and hi unread.
 extern "C" int spf_mad_horner(const float* d0, const float* d1, const float* d2, const float* d3,
                               const float* r0, const float* r1, const float* r2, const float* r3,
-                              const float* u0, const float* u1, const float* u2, const float* u3,
-                              float* o0, float* o1, float* o2, float* o3, int kp1, int l, int g,
-                              int k, int b, void* stream) {
+                              const float* lo0, const float* lo1, const float* lo2,
+                              const float* lo3, const float* hi0, const float* hi1,
+                              const float* hi2, const float* hi3, float* o0, float* o1, float* o2,
+                              float* o3, int kp1, int l, int g, int k, int b, int klo,
+                              void* stream) {
   if (l < 1 || k < 1 || b < 1 || (long long)k * b >= (1LL << 31))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Planes4 d{d0, d1, d2, d3}, r{r0, r1, r2, r3}, u{u0, u1, u2, u3};
+  if (g > 0 && (klo < 1 || k % klo != 0)) return static_cast<int>(cudaErrorInvalidValue);
+  const Planes4 d{d0, d1, d2, d3}, r{r0, r1, r2, r3}, lo{lo0, lo1, lo2, lo3},
+      hi{hi0, hi1, hi2, hi3};
   cudaStream_t s = (cudaStream_t)stream;
   if (kp1 == 2) {
     switch (g) {
-      case 0: return launch<2, 0>(d, r, u, o0, o1, o2, o3, l, k, b, s);
-      case 1: return launch<2, 1>(d, r, u, o0, o1, o2, o3, l, k, b, s);
-      case 2: return launch<2, 2>(d, r, u, o0, o1, o2, o3, l, k, b, s);
-      case 3: return launch<2, 3>(d, r, u, o0, o1, o2, o3, l, k, b, s);
+      case 0: return launch<2, 0>(d, r, lo, hi, o0, o1, o2, o3, l, k, b, klo, s);
+      case 1: return launch<2, 1>(d, r, lo, hi, o0, o1, o2, o3, l, k, b, klo, s);
+      case 2: return launch<2, 2>(d, r, lo, hi, o0, o1, o2, o3, l, k, b, klo, s);
+      case 3: return launch<2, 3>(d, r, lo, hi, o0, o1, o2, o3, l, k, b, klo, s);
       default: break;
     }
   }

@@ -4,7 +4,8 @@ launch count. Importing this package builds and loads nothing.
 `mad.cu`'s one entry point serves four instantiations, each counted on
 its own: g = 3 (`mad_horner`, the multi-bit PBS), g = 2 (the multi-bit
 rotation inside circuit bootstrapping), g = 1 (the single-bit phase_rot
-step) and g = 0 (`freq_mad`, one key row with no phase)."""
+step), each forming its step's (phase - 1) factors from their halves, and
+g = 0 (`freq_mad`, one key row with no phase)."""
 
 from .build import Kernel
 
@@ -15,7 +16,7 @@ ROTATE_SUB_DECOMPOSE_ACC = Kernel("rot_decomp", "spf_rotate_sub_decompose_acc",
                                   "pppppp" + "iiiii" + "p")
 FWD_DS = Kernel("fft", "spf_fwd_ds", "pppppppiiip")
 INV_DS = Kernel("fft", "spf_inv_ds", "pppppppiiip")
-_MAD_ARGS = "p" * 16 + "iiiiip"
+_MAD_ARGS = "p" * 20 + "iiiiii" + "p"
 MAD_HORNER = Kernel("mad", "spf_mad_horner", _MAD_ARGS)
 MAD_HORNER_G2 = Kernel("mad", "spf_mad_horner", _MAD_ARGS)
 MAD_HORNER_G1 = Kernel("mad", "spf_mad_horner", _MAD_ARGS)

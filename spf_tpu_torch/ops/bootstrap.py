@@ -29,7 +29,7 @@ from torch import nn
 from ..params import GlweDef, RadixDecomposition
 from . import fft, torus
 from .mad import freq_mad, freq_mad_plain, mad_horner
-from .phase_rot import combine_phase_minus_one, fence, phase_factors_all
+from .phase_rot import fence, phase_factors_all
 from .rot_decomp import accumulate_decompose, rotate_sub_decompose, rotate_sub_decompose_acc
 
 
@@ -117,10 +117,11 @@ def blind_rotate(lut, ct_switched, bsk_freq, glwe: GlweDef, radix: RadixDecompos
     for i in range(a.shape[0]):
         digits, acc = accumulate_decompose(acc, prod, radix)
         dfft = fft.fwd_ds(digits, digits_lo)
-        pm1 = combine_phase_minus_one(tuple(c[i] for c in ph_lo), tuple(c[i] for c in ph_hi))
-        # cmul(freq_mad(dfft, row), pm1): mad_horner's g = 1 instance
-        key = tuple(c[i][None] for c in bsk_freq)
-        prod = fft.inv_ds(mad_horner(dfft, key, tuple(c[None] for c in pm1), 1))
+        # cmul(freq_mad(dfft, row), pm1): mad_horner's g = 1 instance, which
+        # forms pm1 from the step's halves
+        halves = (tuple(c[i:i + 1] for c in ph_lo), tuple(c[i:i + 1] for c in ph_hi))
+        key = tuple(c[i:i + 1] for c in bsk_freq)
+        prod = fft.inv_ds(mad_horner(dfft, key, halves, 1))
     return torus.add(acc, torus.from_ds(*prod))
 
 

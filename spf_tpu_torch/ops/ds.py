@@ -8,6 +8,13 @@ rewritten into an algebraically equal form: the error terms depend on
 the exact sequence of f32 roundings (and on no fused multiply-add, which
 PyTorch's elementwise operators never introduce across operators).
 
+The one exception is TwoProd's error term, which is defined by its value,
+not by a sequence of roundings: the exact a*b - p rounded once to f32.
+The port computes it through f64 (`two_prod`), the kernels with one fma
+(`csrc/ds.cuh`); both round the same exact value once, subnormals
+included. The reference's Veltkamp split gives the same bits wherever no
+partial product underflows.
+
 Complex ds values are 4-tuples of f32 tensors (re_hi, re_lo, im_hi,
 im_lo).
 """
@@ -15,9 +22,6 @@ im_lo).
 from __future__ import annotations
 
 import numpy as np
-
-# 2**12 + 1, the Veltkamp split constant for f32
-_SPLIT = 4097.0
 
 
 def two_sum(a, b):
@@ -35,19 +39,12 @@ def quick_two_sum(a, b):
     return s, err
 
 
-def _split(a):
-    t = _SPLIT * a
-    hi = t - (t - a)
-    lo = a - hi
-    return hi, lo
-
-
 def two_prod(a, b):
-    """Exact product: p + err == a * b (Veltkamp split, no FMA)."""
+    """Exact product: p + err == a * b. A product of two f32 values and
+    its difference from p are exact in f64, so `err` is rounded once, as
+    the kernels' fma(a, b, -p) rounds it."""
     p = a * b
-    ah, al = _split(a)
-    bh, bl = _split(b)
-    err = ((ah * bh - p) + ah * bl + al * bh) + al * bl
+    err = (a.double() * b.double() - p.double()).float()
     return p, err
 
 

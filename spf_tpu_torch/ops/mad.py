@@ -1,20 +1,24 @@
 """The frequency-domain MAD of a blind-rotation step, with or without
 Horner subset phases.
 
-Port of `spf_tpu/ops/mad_pallas.py::mad_horner_fused`. Per group t it
-evaluates
+Port of `spf_tpu/ops/mad_pallas.py::mad_horner_fused` and of the per-bit
+phase combine that XLA fuses around it on the TPU
+(`spf_tpu/ops/multibit.py:213-245`). Per group t it evaluates
 
     prod_f = sum_S (prod_{j in S} u_j) (x) MAD(dfft, BSK[t, S])
 
 over the 2^g - 1 nonempty subsets S, with the sum Horner-factored
-(`nested_subset_sum`). Everything is elementwise in (K, B). The kernel
-(`csrc/mad.cu`) keeps the reference's order of evaluation, so it agrees
-with the plain version (`freq_mad_plain` per subset +
-`nested_subset_sum`) bit for bit, at any K and B. The kernel is built for
-g = 3 (the multi-bit PBS), g = 2 (the rotation inside circuit
-bootstrapping) and g = 1 (the single-bit phase_rot step, where it is
-exactly `cmul(freq_mad(..), pm1)`, `bootstrap_u32.py:278-280`), and its
-g = 0 instance is `freq_mad`: the MAD of one key row with no phase
+(`nested_subset_sum`) and each u_j = (phase_j - 1) formed from the step's
+hoisted outer-product halves (`phase_rot.combine_phase_minus_one`).
+Everything is elementwise in (K, B). The kernel (`csrc/mad.cu`) forms the
+u_j in registers and keeps the reference's order of evaluation, so it
+agrees with the plain version (`combine_phase_minus_one` per bit, then
+`mad_horner_plain`: `freq_mad_plain` per subset + `nested_subset_sum`) bit
+for bit, at any K = Klo * Khi and B. The kernel is built for g = 3 (the
+multi-bit PBS), g = 2 (the rotation inside circuit bootstrapping) and
+g = 1 (the single-bit phase_rot step, where it is exactly
+`cmul(freq_mad(..), pm1)`, `bootstrap_u32.py:278-280`), and its g = 0
+instance is `freq_mad`: the MAD of one key row with no phase
 (`bootstrap_u32.freq_mad`, XLA glue on the TPU), the frequency-domain
 half of the single-bit plain and fuse_rot steps.
 """
@@ -26,6 +30,7 @@ import torch
 from .. import kernels
 from ..kernels.build import check_cuda, dispatch, stream_of
 from . import ds
+from .phase_rot import combine_phase_minus_one
 
 MAD_KP1 = (2,)  # the k + 1 the kernel is built for (csrc/mad.cu); g: kernels.MAD_BY_GROUP
 
@@ -78,37 +83,67 @@ def mad_horner_plain(dfft, row, u, group: int):
     return nested_subset_sum(mads, u_list, group)
 
 
-def _mad_cuda(dfft, row, u, group):
-    """The kernel's g-instance; row [2^g-1, k+1, l, k+1, K] for g >= 1,
-    [k+1, l, k+1, K] for g = 0 (u unread)."""
+def _klo(dfft, halves, group: int) -> int:
+    """Klo of the step's phase factor halves (lo 4 planes [g, Klo, B], hi 4
+    planes [g, Khi, B]); raises unless they fit dfft [l, k+1, K, B] with
+    Klo * Khi = K."""
+    _, _, k_, b = dfft[0].shape
+    lo, hi = halves
+    klo, khi = lo[0].shape[1], hi[0].shape[1]
+    if (tuple(lo[0].shape) != (group, klo, b) or tuple(hi[0].shape) != (group, khi, b)
+            or klo * khi != k_):
+        raise ValueError(f"mad_horner: halves {tuple(lo[0].shape)}, {tuple(hi[0].shape)} "
+                         f"for g = {group}, K = {k_}, B = {b}")
+    return klo
+
+
+def mad_horner_combine_plain(dfft, row, halves, group: int):
+    """The plain version of the kernel: each bit's (phase - 1) from the
+    step's halves (`combine_phase_minus_one`), then `mad_horner_plain`."""
+    _klo(dfft, halves, group)
+    lo, hi = halves
+    u = [combine_phase_minus_one(tuple(c[j] for c in lo), tuple(c[j] for c in hi))
+         for j in range(group)]
+    return mad_horner_plain(dfft, row, tuple(torch.stack([uj[c] for uj in u]) for c in range(4)),
+                            group)
+
+
+def _mad_cuda(dfft, row, halves, group):
+    """The kernel's g-instance; row [2^g-1, k+1, l, k+1, K] and the halves
+    for g >= 1, row [k+1, l, k+1, K] for g = 0 (no halves)."""
     kernel = kernels.MAD_BY_GROUP.get(group)
     l, kp1, k_, b = dfft[0].shape
     ns = (1 << group) - 1
     if kp1 not in MAD_KP1 or kernel is None:
         raise ValueError(f"mad_horner: no kernel for k+1 = {kp1}, g = {group}")
     want_row = (kp1, l, kp1, k_) if group == 0 else (ns, kp1, l, kp1, k_)
-    if tuple(row[0].shape) != want_row or (group and tuple(u[0].shape) != (group, k_, b)):
-        raise ValueError(f"mad_horner: shapes {dfft[0].shape}, {row[0].shape}, "
-                         f"{None if u is None else u[0].shape} for g = {group}")
+    if tuple(row[0].shape) != want_row:
+        raise ValueError(f"mad_horner: shapes {dfft[0].shape}, {row[0].shape} for g = {group}")
+    klo = _klo(dfft, halves, group) if group else 0
     dfft, row = ([c.contiguous() for c in x] for x in (dfft, row))
-    u = dfft if group == 0 else [c.contiguous() for c in u]  # g = 0: never read
-    check_cuda("mad_horner", *dfft, *row, *u)
+    # g = 0: the halves are never read
+    lo, hi = (dfft, dfft) if group == 0 else ([c.contiguous() for c in h] for h in halves)
+    check_cuda("mad_horner", *dfft, *row, *lo, *hi)
     if k_ * b >= 1 << 31:
         raise ValueError("mad_horner: too many elements for one launch")
     out = [torch.empty((kp1, k_, b), dtype=torch.float32, device=dfft[0].device) for _ in range(4)]
     kernel(
-        *(c.data_ptr() for c in (*dfft, *row, *u, *out)),
-        kp1, l, group, k_, b, stream_of(dfft[0]),
+        *(c.data_ptr() for c in (*dfft, *row, *lo, *hi, *out)),
+        kp1, l, group, k_, b, klo, stream_of(dfft[0]),
     )
     return tuple(out)
 
 
-def mad_horner(dfft, row, u, group: int):
-    """The CUDA kernel on CUDA tensors, the plain version on CPU tensors."""
+def mad_horner(dfft, row, halves, group: int):
+    """The step's MAD + Horner subset phases: dfft 4 planes [l, k+1, K, B],
+    row 4 planes [2^g-1, k+1, l, k+1, K], halves = (lo, hi), the step's
+    phase factor halves, 4 planes [g, Klo, B] and [g, Khi, B] with
+    Klo * Khi = K -> 4 planes [k+1, K, B]. The CUDA kernel on CUDA tensors,
+    `mad_horner_combine_plain` on CPU tensors."""
     if group < 1:
         raise ValueError(f"mad_horner: group {group} < 1 (freq_mad is the g = 0 MAD)")
-    return dispatch("mad_horner", dfft[0], _mad_cuda, mad_horner_plain,
-                    dfft, row, u, group)
+    return dispatch("mad_horner", dfft[0], _mad_cuda, mad_horner_combine_plain,
+                    dfft, row, halves, group)
 
 
 def freq_mad(dfft, ggsw_row):

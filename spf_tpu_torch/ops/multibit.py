@@ -14,7 +14,8 @@ one step of the loop is
 where each (X^{a_j} - 1) is diagonal in the frequency domain
 (`phase_rot`). Per step the loop runs four kernels: accumulate and
 decompose (`rot_decomp`), the forward FFT (`fft`), MAD + Horner subset
-phases (`mad`) and the inverse FFT. The LWE dimension is padded to a
+phases with the step's (phase - 1) factors formed from their hoisted
+halves (`mad`) and the inverse FFT. The LWE dimension is padded to a
 multiple of g with zero mask coefficients, which is exact: a padded bit
 contributes phase(0) - 1 = 0.
 """
@@ -29,7 +30,7 @@ from ..params import GlweDef, RadixDecomposition
 from . import fft, torus
 from .bootstrap import as_tensor, register_spectra, sample_extract, spectra
 from .mad import mad_horner
-from .phase_rot import combine_phase_minus_one, fence, phase_factors_all
+from .phase_rot import fence, phase_factors_all
 from .rot_decomp import accumulate_decompose
 
 
@@ -87,15 +88,9 @@ def rotate_groups(acc, ph_lo, ph_hi, bsk_freq, radix: RadixDecomposition, group:
     for t in range(bsk_freq[0].shape[0]):
         digits_f, acc = accumulate_decompose(acc, prod, radix)
         dfft = fft.fwd_ds(digits_f, digits_lo)
-        u = [
-            combine_phase_minus_one(
-                tuple(c[t, j] for c in ph_lo), tuple(c[t, j] for c in ph_hi)
-            )
-            for j in range(group)
-        ]
-        u = tuple(torch.stack([u[j][c] for j in range(group)]) for c in range(4))
+        halves = (tuple(c[t] for c in ph_lo), tuple(c[t] for c in ph_hi))  # [g, Klo/Khi, B]
         row = tuple(c[t] for c in bsk_freq)  # [2^g-1, k+1, l, k+1, K]
-        prod = fft.inv_ds(mad_horner(dfft, row, u, group))
+        prod = fft.inv_ds(mad_horner(dfft, row, halves, group))
     return torus.add(acc, torus.from_ds(*prod))
 
 

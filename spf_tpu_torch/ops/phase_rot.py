@@ -7,7 +7,8 @@ phase[m] = psi^(t*(1-4m) mod 2N), psi = e^(i*pi/N). The rotation of a
 blind-rotation step therefore becomes a pointwise multiply by
 (phase - 1), and the phases of all steps are built up front as outer-
 product factors (`phase_factors_all`) that each step combines once
-(`combine_phase_minus_one`).
+(`combine_phase_minus_one`; the MAD kernel forms the same values from the
+same halves in registers, `mad.mad_horner`).
 
 The port's FFT emits plain bit-reversed order, so the bit images here are
 always the bit reversal (the reference's `use_pallas=True` order), and

@@ -117,9 +117,9 @@ def device_ms(fn, copies: list, reps: int):
     return start.elapsed_time(end) / reps, host_us
 
 
-def profiled_device_ms(fn, top: int = 8):
-    """Device time of one call of fn (the sum of its kernels' device
-    times, by torch.profiler) in ms, and the top kernels by device time."""
+def profiled_kernels(fn) -> dict:
+    """{kernel name: [device ms, launches]} of one call of fn, by
+    torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -130,7 +130,16 @@ def profiled_device_ms(fn, top: int = 8):
         if e.device_type == torch.autograd.DeviceType.CUDA:
             name = e.name.replace("(anonymous namespace)::", "").removeprefix("void ")
             name = name.split("(")[0][:80]
-            by_name[name] = by_name.get(name, 0.0) + e.device_time / 1e3
+            entry = by_name.setdefault(name, [0.0, 0])
+            entry[0] += e.device_time / 1e3
+            entry[1] += 1
+    return by_name
+
+
+def profiled_device_ms(fn, top: int = 8):
+    """Device time of one call of fn (the sum of its kernels' device
+    times, by torch.profiler) in ms, and the top kernels by device time."""
+    by_name = {name: ms for name, (ms, _) in profiled_kernels(fn).items()}
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     return sum(by_name.values()), dict(ranked)
 

@@ -17,7 +17,9 @@ FFT, `freq_mad`, inverse FFT, add); then the phase section:
 `accumulate_decompose`, "pm1 doubling" (the `phase_minus_one` kernel with
 `perm = scrambled_perm(K)`: the port's FFT emits plain bit reversal, as
 `fft_pallas` does), "pm1 hoisted combine" (`combine_phase_minus_one` of
-one step's hoisted factors, the form the port's rotations run), "pm1
+one step's hoisted factors as eager PyTorch operators: the rotations no
+longer run it, since the MAD kernel forms the factors from the same
+halves in registers), "pm1
 gather" (plain indexing into the psi table, as the script does) and the
 "phase step (full)": accumulate_decompose -> `fwd_ds` -> pm1 ->
 `ds.cmul(dfft, pm1)` -> `freq_mad` -> `inv_ds` -> `from_ds` + add (the

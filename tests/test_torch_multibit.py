@@ -176,8 +176,8 @@ def test_one_group_step_bit_for_bit(material, spectra, reference):
     ]
     for uj, rj in zip(u, ref["u"]):
         _eq_planes(uj, rj)
-    u = tuple(torch.stack([u[j][c] for j in range(GROUP)]) for c in range(4))
-    prod_f = mad.mad_horner(dfft, tuple(c[0] for c in spectra), u, GROUP)
+    halves = (tuple(c[:GROUP] for c in ph_lo), tuple(c[:GROUP] for c in ph_hi))
+    prod_f = mad.mad_horner(dfft, tuple(c[0] for c in spectra), halves, GROUP)
     _eq_planes(prod_f, ref["prod_f"])
     _eq_planes(fft.inv_ds(prod_f), ref["prod"])
 

@@ -134,7 +134,7 @@ def test_mad_horner_plain_matches_freq_mad(group):
     k_, b = 32, 8
     rng = np.random.default_rng(group)
     dfft, row, u = _mad_operands(rng, group, k_, b)
-    got = mad.mad_horner(_t(dfft), _t(row), _t(u), group)
+    got = mad.mad_horner_plain(_t(dfft), _t(row), _t(u), group)
     glwe = JGlwe(size=1, degree=2 * k_, std=0.0)
     jd, jr, ju = _j(dfft), _j(row), _j(u)
     mads = [bu.freq_mad(jd, tuple(c[m] for c in jr), glwe, JRadix(2, 16))
@@ -155,6 +155,61 @@ def test_mad_horner_plain_matches_interpret_kernel():
     want = mad_horner_fused(_j(dfft), _j(row), _j(u), 1, interpret=True)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-2, atol=1e-3)
+
+
+def _phase_halves(rng, group, n, b):
+    """Real phase factor halves of one step, g bits: 4 planes [g, Klo, B]
+    and [g, Khi, B] (numpy), from random exponents."""
+    lo, hi = phase_rot.phase_factors_all(torch.from_numpy(rng.integers(0, 2 * n, (group, b))), n)
+    return tuple(c.numpy() for c in lo), tuple(c.numpy() for c in hi)
+
+
+@pytest.mark.parametrize("group", [1, 2, 3])
+def test_mad_horner_forms_its_phases(group):
+    """mad_horner(dfft, row, (lo, hi), g) on CPU tensors == each bit's
+    combine_phase_minus_one, then mad_horner_plain, bit for bit; and == the
+    JAX package's combine_phase_minus_one + freq_mad per subset +
+    _nested_subset_sum, op by op (eagerly), at K = 32 (Klo = 4, Khi = 8),
+    B = 8."""
+    from spf_tpu.params import GlweDef as JGlwe
+
+    k_, b = 32, 8
+    rng = np.random.default_rng(20 + group)
+    dfft, row, _ = _mad_operands(rng, group, k_, b)
+    lo, hi = _phase_halves(rng, group, 2 * k_, b)
+    got = mad.mad_horner(_t(dfft), _t(row), (_t(lo), _t(hi)), group)
+
+    u = [phase_rot.combine_phase_minus_one(tuple(torch.from_numpy(c[j]) for c in lo),
+                                           tuple(torch.from_numpy(c[j]) for c in hi))
+         for j in range(group)]
+    plain = mad.mad_horner_plain(_t(dfft), _t(row),
+                                 tuple(torch.stack([uj[c] for uj in u]) for c in range(4)), group)
+    for g, w in zip(got, plain):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+    glwe = JGlwe(size=1, degree=2 * k_, std=0.0)
+    jd, jr = _j(dfft), _j(row)
+    ju = [jpr.combine_phase_minus_one(tuple(jnp.asarray(c[j]) for c in lo),
+                                      tuple(jnp.asarray(c[j]) for c in hi))
+          for j in range(group)]
+    mads = [bu.freq_mad(jd, tuple(c[m] for c in jr), glwe, JRadix(2, 16))
+            for m in range((1 << group) - 1)]
+    _eq_planes(got, jmb._nested_subset_sum(mads, ju, group))
+
+
+@pytest.mark.parametrize("bad", ["device", "halves"])
+def test_mad_horner_refuses(bad):
+    """The wrapper refuses a tensor on neither the CPU nor CUDA, and halves
+    whose Klo * Khi is not K."""
+    k_, b, group = 32, 8, 2
+    dev = "meta" if bad == "device" else "cpu"
+    dfft = tuple(torch.zeros((2, 2, k_, b), device=dev) for _ in range(4))
+    row = tuple(torch.zeros((3, 2, 2, 2, k_), device=dev) for _ in range(4))
+    khi = 8 if bad == "device" else 4  # Klo * Khi = 16 != K
+    lo = tuple(torch.zeros((group, 4, b), device=dev) for _ in range(4))
+    hi = tuple(torch.zeros((group, khi, b), device=dev) for _ in range(4))
+    with pytest.raises(ValueError, match="unsupported device" if bad == "device" else "halves"):
+        mad.mad_horner(dfft, row, (lo, hi), group)
 
 
 def test_phase_factors_match_reference():
@@ -193,6 +248,6 @@ def test_wrappers_run_plain_only_on_cpu():
     with pytest.raises(ValueError):
         rot_decomp.accumulate_decompose(t.long(), (t, t), RadixDecomposition(2, 16))
     with pytest.raises(ValueError):
-        mad.mad_horner(planes, planes, planes, 1)
+        mad.mad_horner(planes, planes, (planes, planes), 1)
     with pytest.raises(ValueError):
         phase_rot.fence(t)

@@ -283,7 +283,7 @@ def test_wrappers_run_plain_only_on_cpu():
     with pytest.raises(ValueError):
         mad.freq_mad(planes, planes)
     with pytest.raises(ValueError, match="group"):
-        mad.mad_horner(planes, planes, planes, 0)
+        mad.mad_horner(planes, planes, (planes, planes), 0)
 
 
 def test_bootstrap_rejects_a_multibit_key(material):

@@ -154,6 +154,48 @@ def _ds_operands(n):
     return ds.from_f64_array(x)
 
 
+def _two_prod_operands(against):
+    """f32 operands a, b. For "f64": exponents over a wide range, with pairs
+    near 2^60 * 2^60 and 2^-60 * 2^-60 and products down to 2^-150, so that
+    some errors and some products are subnormal. For "jax": only pairs whose
+    Veltkamp partial products stay normal (|a*b| >= 2^-90, below 2^121),
+    where the split is exact too."""
+    n = 8192
+    m = RNG.uniform(1.0, 2.0, size=(2, n)) * RNG.choice([-1.0, 1.0], size=(2, n))
+    e = RNG.integers(-75, 64, size=(2, n))
+    e[:, :256] = RNG.integers(57, 64, size=(2, 256))  # near 2^60 * 2^60
+    e[:, 256:512] = RNG.integers(-64, -56, size=(2, 256))  # near 2^-60 * 2^-60
+    a, b = (m * np.exp2(e)).astype(np.float32)
+    if against == "jax":
+        keep = (e.sum(axis=0) >= -90) & (e.sum(axis=0) <= 120)
+        a, b = a[keep], b[keep]
+    return a, b
+
+
+@pytest.mark.parametrize("against", ["f64", "jax"])
+def test_two_prod_error_is_exact(against):
+    """ds.two_prod's error term is the exact a*b - p rounded once to f32:
+    against numpy's f64 (a*b - p), subnormal products and errors included,
+    and against the reference's Veltkamp split (`spf_tpu.ops.ds.two_prod`,
+    op by op) where no partial product underflows."""
+    a, b = _two_prod_operands(against)
+    p, err = ds.two_prod(torch.from_numpy(a), torch.from_numpy(b))
+    if against == "f64":
+        want_p = a * b
+        want_err = (a.astype(np.float64) * b.astype(np.float64) - want_p.astype(np.float64)).astype(
+            np.float32)
+        tiny = np.finfo(np.float32).tiny
+        assert (np.abs(want_err[want_err != 0]) < tiny).sum() > 100  # subnormal errors
+        assert ((np.abs(want_p) < tiny) & (want_p != 0)).sum() > 10  # subnormal products
+        np.testing.assert_array_equal(p.numpy().view(np.uint32), want_p.view(np.uint32))
+        np.testing.assert_array_equal(err.numpy().view(np.uint32), want_err.view(np.uint32))
+    else:
+        with jax.disable_jit():
+            jp, jerr = jds.two_prod(jnp.asarray(a), jnp.asarray(b))
+        _eq_f32(p, jp)
+        _eq_f32(err, jerr)
+
+
 def test_ds_ops_bit_for_bit():
     a = _ds_operands(4096)
     b = _ds_operands(4096)
