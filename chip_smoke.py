@@ -12,12 +12,15 @@ Phases, each printing one JSON line with its seconds:
    `spf_tpu_torch.scripts.steps_per_clock`);
 2. build: every CUDA kernel from csrc/, one nvcc each, all in parallel;
    each source's registers and spills, and the opcodes of each chain
-   probe kernel (cuobjdump -sass);
+   probe kernel, the MAD and the R = 8 FFT kernels (cuobjdump -sass);
 3. each kernel against its plain PyTorch version on the card, at the
    DEFAULT_128 shapes of the paths below (bit for bit; the rotation
    kernels also at the edge values of t; the MADs with random phase factor
    halves, Klo = Khi = 32; `fence` also on odd lengths at each offset
-   within 16 bytes and below one vector), with both timed (device time:
+   within 16 bytes and below one vector; `fwd_ds` and `inv_ds` also at
+   every K of FFT_KS with ragged B and P up to 8, and timed at each P the
+   paths give them, beside torch.fft.fft of complex128 [P, K, B] as a
+   yardstick of the card), with both timed (device time:
    the kernel queued behind a spin kernel, rotating through copies of its
    inputs that exceed the L2 cache; a plain version of thousands of
    launches summed by torch.profiler). Also the kernels of the probes:
@@ -160,7 +163,7 @@ def compare(name, got, want):
 
 def phase_kernels(gen, hw):
     """Each kernel against its plain version at the main paths' shapes."""
-    from spf_tpu_torch.ops import encryption, fft, mad, phase_rot, rot_decomp, torus
+    from spf_tpu_torch.ops import encryption, fft, mad, phase_rot, rot_decomp
     from spf_tpu_torch.ops.multibit import n_groups
     from spf_tpu_torch.params import DEFAULT_128
 
@@ -196,7 +199,6 @@ def phase_kernels(gen, hw):
     # fwd_ds: the signed digits [l, k+1, N, B] and a zero lo plane
     digits = torch.randint(-(1 << 15), 1 << 15, (l, kp1, n, b), generator=gen, device=dev).float()
     zeros = torch.zeros_like(digits)
-    p_fwd = l * kp1
     # inv_ds: a product spectrum [k+1, K, B]
     prod_f = spectrum(kp1, k, b, exp=70)
     # the MADs: digit spectra [l, k+1, K, B] (l = 4 for the CBS rotation),
@@ -212,9 +214,6 @@ def phase_kernels(gen, hw):
     # the MADs' phase factor halves: Klo = Khi = 32, as the paths make them
     klo = 1 << (logk // 2)
     khi = k // klo
-
-    fft_ops = p_fwd * b * (CMUL * k + (CADD + CSUB + CMUL) * (k // 2) * logk)
-    inv_ops = kp1 * b * (CMUL * k + (CADD + CSUB + CMUL) * (k // 2) * logk)
 
     def mad_case(name, group, d):
         """mad_horner's g-instance (g = 0: freq_mad) on digit spectra d,
@@ -278,26 +277,7 @@ def phase_kernels(gen, hw):
             nbytes=e * (8 + 4 + 4 + 8 + 4 * l) + 8 * b,
             ops=e * 18,  # from_ds once per element; the rest is integer
         ),
-        dict(
-            name="fwd_ds",
-            source="spf_tpu_torch/csrc/fft.cu",
-            replaces="spf_tpu/ops/fft_pallas.py:258",
-            kernel=fft.fwd_ds,
-            plain=fft.fwd_ds_plain,
-            args=(digits, zeros),
-            nbytes=p_fwd * b * (2 * n * 4 + 4 * k * 4),
-            ops=fft_ops,
-        ),
-        dict(
-            name="inv_ds",
-            source="spf_tpu_torch/csrc/fft.cu",
-            replaces="spf_tpu/ops/fft_pallas.py:294",
-            kernel=fft.inv_ds,
-            plain=fft.inv_ds_plain,
-            args=(prod_f,),
-            nbytes=kp1 * b * (4 * k * 4 + 2 * n * 4),
-            ops=inv_ops,
-        ),
+        *fft_cases(gen, (digits, zeros), prod_f, digits_cbs),
         mad_case("mad_horner", GROUP, dfft),
         mad_case("mad_horner_g2", GROUP_CBS, dfft_cbs),
         mad_case("mad_horner_g1", 1, dfft),
@@ -316,16 +296,89 @@ def phase_kernels(gen, hw):
             ops=0,
         ),
     ]
-    # a second fwd_ds input: torus values with a real lo plane, as the key
-    # conversion feeds it
-    tor = encryption.uniform_torus((n, 1024), gen)
-    next(c for c in cases if c["name"] == "fwd_ds")["extra_args"] = [torus.to_ds(tor)]
-
     cases += phase_and_probe_cases(gen, hw)
     f32_per_s = chain_peak_per_s(1, {"fma": 1}, hw)  # one f32 instruction a lane and clock
     for c in cases:
         c.setdefault("ops_per_s", f32_per_s)
     return merge_rows(cases, [measure(c) for c in cases])
+
+
+FFT_KS = (2, 4, 32, 1024, 2048)
+FFT_BS = (1, 3, 8, 129, 256, 1024)
+FFT_PS = (1, 2, 4, 8)
+YARDSTICK = "c128 cuFFT, same size, not the same bits"
+
+
+def fft_ops(p: int, k: int, b: int) -> int:
+    """f32 instructions of one ds32 FFT call: the twist (or untwist), then
+    log2(K) stages of K/2 butterflies (a complex add, subtract, multiply)."""
+    return p * b * (CMUL * k + (CADD + CSUB + CMUL) * (k // 2) * (k.bit_length() - 1))
+
+
+def fft_cases(gen, fwd_args, prod_f, digits_cbs) -> list:
+    """fwd_ds and inv_ds, each one row whose `parts` are the shapes the
+    paths time it at: fwd_ds at P = l(k+1) = 4 (the PBS) and 8 (the CBS
+    rotation, l = 4), inv_ds at P = k+1 = 2 and 4; each beside a yardstick,
+    torch.fft.fft over the same [P, K, B] in complex128 (cuFFT: the same
+    size, not the same bits). The first part is also held bit for bit at
+    every K of FFT_KS, each with every B of FFT_BS and a P of FFT_PS: the
+    forward on signed digits with a zero lo plane and on torus values with
+    a real lo plane (the key conversion's), the inverse on spectra of
+    magnitude 2^70."""
+    from spf_tpu_torch.ops import encryption, fft, torus
+
+    dev = "cuda"
+
+    def spectrum(*shape, exp=70):
+        out = []
+        for _ in range(2):
+            hi = torch.randn(shape, generator=gen, device=dev) * 2.0**exp
+            out += [hi, hi * torch.randn(shape, generator=gen, device=dev) * 2.0**-25]
+        return tuple(out)
+
+    def shapes():
+        for k in FFT_KS:
+            for i, b in enumerate(FFT_BS):
+                yield k, b, FFT_PS[(i + FFT_KS.index(k)) % len(FFT_PS)]
+
+    def fwd_extra():
+        for k, b, p in shapes():
+            digits = torch.randint(-(1 << 15), 1 << 15, (p, 2 * k, b), generator=gen,
+                                   device=dev).float()
+            yield digits, torch.zeros_like(digits)
+            yield torus.to_ds(encryption.uniform_torus((p, 2 * k, b), gen))
+
+    def inv_extra():
+        for k, b, p in shapes():
+            yield (spectrum(p, k, b),)
+
+    def yardstick(p, k, b):
+        z = torch.randn((p, k, b), generator=gen, device=dev, dtype=torch.complex128)
+        return dict(yardstick=lambda x: torch.fft.fft(x, dim=-2), yardstick_args=(z,))
+
+    def case(inverse, args, p, k, b, **extra):
+        n = 2 * k
+        return dict(
+            name=f"{'inv' if inverse else 'fwd'}_ds P={p}", row="inv_ds" if inverse else "fwd_ds",
+            source="spf_tpu_torch/csrc/fft.cu",
+            replaces="spf_tpu/ops/fft_pallas.py:294" if inverse else "spf_tpu/ops/fft_pallas.py:258",
+            kernel=fft.inv_ds if inverse else fft.fwd_ds,
+            plain=fft.inv_ds_plain if inverse else fft.fwd_ds_plain,
+            args=args, nbytes=p * b * (2 * n * 4 + 4 * k * 4), ops=fft_ops(p, k, b),
+            note=f"parts: the paths' P; extra shapes held bit for bit: K {FFT_KS}, B {FFT_BS}, "
+                 f"P {FFT_PS}; yardstick_ms: {YARDSTICK}",
+            **yardstick(p, k, b), **extra)
+
+    digits, zeros = fwd_args
+    kp1, k, b = prod_f[0].shape
+    p_fwd = digits.shape[0] * digits.shape[1]
+    return [
+        case(False, fwd_args, p_fwd, k, b, extra_args=fwd_extra()),
+        case(False, (digits_cbs, torch.zeros_like(digits_cbs)),
+             digits_cbs.shape[0] * digits_cbs.shape[1], k, b),
+        case(True, (prod_f,), kp1, k, b, extra_args=inv_extra()),
+        case(True, (spectrum(2 * kp1, k, b),), 2 * kp1, k, b),
+    ]
 
 
 def phase_and_probe_cases(gen, hw) -> list:
@@ -408,7 +461,7 @@ def merge_rows(cases, results) -> list:
         m = merged[name]
         m["parts"][r["name"]] = {key: r[key] for key in (
             "bitexact", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "share",
-            "host_us_per_call")}
+            "host_us_per_call", "yardstick_ms") if key in r}
         m["bitexact"] = m["bitexact"] and r["bitexact"]
         m["max_abs_err"] = max(m["max_abs_err"], r["max_abs_err"])
     return rows
@@ -438,13 +491,18 @@ def measure(c) -> dict:
             / len(plain_copies)
     library_ms = device_ms(c["library"], copies, 50)[0] if "library" in c else None
     del copies
+    extra = {}
+    if "yardstick" in c:
+        z = c["yardstick_args"]
+        extra = dict(yardstick=YARDSTICK, yardstick_ms=device_ms(
+            c["yardstick"], cold_copies(z, z[0].numel() * z[0].element_size()), 50)[0])
     bms, by = bound_ms(c["nbytes"], c["ops"], c["ops_per_s"])
     return dict(
         name=c["name"], route="cuda", source=c["source"], replaces=c["replaces"],
         bitexact=exact, max_abs_err=err, ms=kernel_ms, kernel_ms=kernel_ms,
         plain_ms=plain_ms, library_ms=library_ms, bound_ms=bms, bound_by=by,
         share=bms / kernel_ms, bytes=c["nbytes"], ops=c["ops"], host_us_per_call=host_us,
-        note=c.get("note"),
+        note=c.get("note"), **extra,
     )
 
 
@@ -943,7 +1001,8 @@ def main() -> int:
     emit(dict(phase="build", seconds=time.perf_counter() - t0, per_source_s=per_source,
               ptxas=ptxas,
               chain_sass_opcodes=sass_histogram(kbuild.library_path("probe"), "chain_kernel"),
-              mad_sass_opcodes=sass_histogram(kbuild.library_path("mad"), "mad_horner_kernel")))
+              mad_sass_opcodes=sass_histogram(kbuild.library_path("mad"), "mad_horner_kernel"),
+              fft_sass_opcodes=sass_histogram(kbuild.library_path("fft"), "ds_kernelILi8E")))
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     results = timed("kernels_vs_plain", lambda: phase_kernels(gen, hw))

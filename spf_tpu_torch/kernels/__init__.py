@@ -14,8 +14,8 @@ ACCUMULATE_DECOMPOSE = Kernel("rot_decomp", "spf_accumulate_decompose", "pppppii
 ROTATE_SUB_DECOMPOSE = Kernel("rot_decomp", "spf_rotate_sub_decompose", "pppiiiiip")
 ROTATE_SUB_DECOMPOSE_ACC = Kernel("rot_decomp", "spf_rotate_sub_decompose_acc",
                                   "pppppp" + "iiiii" + "p")
-FWD_DS = Kernel("fft", "spf_fwd_ds", "pppppppiiip")
-INV_DS = Kernel("fft", "spf_inv_ds", "pppppppiiip")
+FWD_DS = Kernel("fft", "spf_fwd_ds", "ppppiiip")
+INV_DS = Kernel("fft", "spf_inv_ds", "ppppppiiip")
 _MAD_ARGS = "p" * 20 + "iiiiii" + "p"
 MAD_HORNER = Kernel("mad", "spf_mad_horner", _MAD_ARGS)
 MAD_HORNER_G2 = Kernel("mad", "spf_mad_horner", _MAD_ARGS)

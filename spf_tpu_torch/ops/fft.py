@@ -14,11 +14,15 @@ a spectrum is a 4-tuple of f32 planes (re_hi, re_lo, im_hi, im_lo).
 `fwd_ds`/`inv_ds` launch the CUDA kernels (`csrc/fft.cu`) on CUDA
 tensors and run the plain versions `fwd_ds_plain`/`inv_ds_plain` (the
 port of the reference's twins `fwd_ds_ref`/`inv_ds_ref`) on CPU tensors.
+The kernels read the same constants as the plain versions, compacted into
+one table a direction (`kernel_tables_np`), and return their planes as
+views of one output tensor.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
@@ -122,38 +126,59 @@ def _check_k(k: int) -> None:
         raise ValueError(f"FFT length K = {k} must be a power of two in [2, 2048]")
 
 
+@functools.lru_cache(maxsize=16)
+def kernel_tables_np(k: int, inverse: bool) -> np.ndarray:
+    """The kernels' constants, f32 [2K, 4] as (re hi, re lo, im hi, im lo):
+    row h + n (1 <= h <= K/2, n < h) is the twiddle of the stage with half
+    h at index n, row K + r the twist (or untwist) of row r; row 0 is
+    unused. Every word is `_stage_tables`' own: the twiddle at any b-row of
+    the stage whose position in its block is h + n, the twist at row r."""
+    consts, halves = _stage_tables(k, inverse)
+    consts = consts[:, :, 0]
+    tab = np.zeros((2 * k, 4), dtype=np.float32)
+    for s, h in enumerate(halves):
+        tab[h:2 * h] = consts[5 * s + 1:5 * s + 5, h:2 * h].T
+    tb = 5 * len(halves)
+    tab[k:] = consts[tb:tb + 4].T
+    return tab
+
+
+@functools.lru_cache(maxsize=32)
+def _kernel_tables(k: int, inverse: bool, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(kernel_tables_np(k, inverse)).to(device)
+
+
 def _fwd_ds_cuda(hi, lo):
-    n, b = hi.shape[-2], hi.shape[-1]
+    *lead, n, b = hi.shape
     k = n // 2
     _check_k(k)
-    lead = hi.shape[:-2]
-    p = int(np.prod(lead)) if lead else 1
+    if n != 2 * k or lo.shape != hi.shape:
+        raise ValueError(f"fwd_ds: hi {tuple(hi.shape)} and lo {tuple(lo.shape)} must be one "
+                         "shape [..., N, B] with N even")
     hi = hi.contiguous()
     lo = lo.contiguous()
     check_cuda("fwd_ds", hi, lo)
-    consts = _consts(k, False, hi.device)
-    out = [torch.empty((p, k, b), dtype=torch.float32, device=hi.device) for _ in range(4)]
+    out = torch.empty((4, *lead, k, b), dtype=torch.float32, device=hi.device)
     kernels.FWD_DS(
-        hi.data_ptr(), lo.data_ptr(), consts.data_ptr(),
-        *(o.data_ptr() for o in out), p, k, b, stream_of(hi),
+        hi.data_ptr(), lo.data_ptr(), _kernel_tables(k, False, hi.device).data_ptr(),
+        out.data_ptr(), math.prod(lead), k, b, stream_of(hi),
     )
-    return tuple(o.view(*lead, k, b) for o in out)
+    return out.unbind(0)
 
 
 def _inv_ds_cuda(f):
-    k, b = f[0].shape[-2], f[0].shape[-1]
+    *lead, k, b = f[0].shape
     _check_k(k)
-    lead = f[0].shape[:-2]
-    p = int(np.prod(lead)) if lead else 1
+    if any(c.shape != f[0].shape for c in f[1:]):
+        raise ValueError(f"inv_ds: the 4 planes must be one shape, got {[tuple(c.shape) for c in f]}")
     f = [c.contiguous() for c in f]
     check_cuda("inv_ds", *f)
-    consts = _consts(k, True, f[0].device)
-    out = [torch.empty((p, 2 * k, b), dtype=torch.float32, device=f[0].device) for _ in range(2)]
+    out = torch.empty((2, *lead, 2 * k, b), dtype=torch.float32, device=f[0].device)
     kernels.INV_DS(
-        *(c.data_ptr() for c in f), consts.data_ptr(),
-        out[0].data_ptr(), out[1].data_ptr(), p, k, b, stream_of(f[0]),
+        *(c.data_ptr() for c in f), _kernel_tables(k, True, f[0].device).data_ptr(),
+        out.data_ptr(), math.prod(lead), k, b, stream_of(f[0]),
     )
-    return tuple(o.view(*lead, 2 * k, b) for o in out)
+    return out.unbind(0)
 
 
 def fwd_ds(hi: torch.Tensor, lo: torch.Tensor):

@@ -5,7 +5,9 @@
 - `gap_probe2` (≙ `scripts/gap_probe2.py`): the per-group cost of the
   multi-bit rotation with its phases hoisted and fenced;
 - `vpu_probe` (≙ `scripts/vpu_probe.py`): the card's f32 and i32 chain
-  rates, the fma question, matrix-product rates and a roll.
+  rates, the fma question, matrix-product rates and a roll;
+- `fft_ab` (the port's own): designs of the FFT kernels timed against
+  each other in turns, each a copy of the package with its own `fft.cu`.
 
 Each runs on a CUDA card as `python -m spf_tpu_torch.scripts.<name>`
 (without a card it raises), prints one JSON line per measurement and
