@@ -15,8 +15,11 @@ Phases, each printing one JSON line with its seconds:
    probe kernel, the MAD and the R = 8 FFT kernels (cuobjdump -sass);
 3. each kernel against its plain PyTorch version on the card, at the
    DEFAULT_128 shapes of the paths below (bit for bit; the rotation
-   kernels also at the edge values of t; the MADs with random phase factor
-   halves, Klo = Khi = 32; `fence` also on odd lengths at each offset
+   kernels also at B = 64 and at every N of ROT_NS with every B of ROT_BS,
+   P of ROT_PS, t at its edges (0, 1, N - 1, N, 2N - 1, 2N, negative,
+   > 2^40) and random; the MADs with random phase factor halves,
+   Klo = Khi = 32, and each per-plane instance, g = 0-3, at k + 1 = 3, 4
+   and 6, N = 256, B = 129 and 8; `fence` also on odd lengths at each offset
    within 16 bytes and below one vector; `fwd_ds` and `inv_ds` also at
    every K of FFT_KS with ragged B and P up to 8, and timed at each P the
    paths give them, beside torch.fft.fft of complex128 [P, K, B] as a
@@ -32,7 +35,10 @@ Phases, each printing one JSON line with its seconds:
    bit-identical outputs: a multi-bit PBS (N = 256, n0 = 32, g = 3,
    B = 8), the single-bit PBS in its three forms (N = 256, n0 = 16) and
    the conversion cycle with a multi-bit (g = 2) and a single-bit key
-   (N = 256, n0 = 8);
+   (N = 256, n0 = 8); then, as one path with the launch counts read
+   around it, the multi-bit PBS (g = 3 and 2) and the single-bit PBS in
+   its three forms at k + 1 = 3, 4 and 6 (N = 256, n0 = 16, B = 8), every
+   MAD on its per-plane instances;
 5. path 1, the multi-bit PBS at DEFAULT_128, g = 3, batch 256: keygen on
    the card, the key conversion through the FFT kernel, one
    `MultibitBootstrap` call with every kernel's launch count read around
@@ -114,9 +120,9 @@ CADD, CSUB, CMUL, DS_ADD = 22, 22, 58, 11
 COMBINE = CMUL + DS_ADD
 # the port's kernels (csrc/*.cu) by name; every other kernel in a profile
 # is PyTorch's: the glue around them
-PORT_KERNELS = ("accumulate_decompose_kernel", "rotate_sub_decompose_kernel",
-                "rotate_sub_decompose_acc_kernel", "fwd_ds_kernel", "inv_ds_kernel",
-                "mad_horner_kernel", "copy_kernel", "phase_kernel", "chain_kernel",
+PORT_KERNELS = ("accumulate_decompose_kernel", "rotate_sub_decompose_kernel", "fwd_ds_kernel",
+                "inv_ds_kernel", "mad_horner_kernel", "mad_plane_kernel", "copy_kernel",
+                "phase_kernel", "chain_kernel",
                 "fma_probe_kernel", "fma_probe_fma_kernel", "roll_kernel")
 
 
@@ -161,9 +167,41 @@ def compare(name, got, want):
     return exact, err
 
 
+def mad_fns(group: int):
+    """(the wrapper, its plain version) of mad.cu's g-instance: freq_mad at
+    g = 0, else mad_horner with the step's phase factor halves."""
+    from spf_tpu_torch.ops import mad
+
+    if group == 0:
+        return mad.freq_mad, mad.freq_mad_plain
+
+    def kernel(d, r, h):
+        return mad.mad_horner(d, r, h, group)
+
+    def plain(d, r, h):
+        return mad.mad_horner_combine_plain(d, r, h, group)
+
+    return kernel, plain
+
+
+def mad_bytes(group: int, kp1: int, l: int, k: int, b: int, k_halves: int) -> int:
+    """Bytes a MAD call moves: the digit spectra, the key rows, the phase
+    factor halves (Klo + Khi bins a bit) and the output, 4 f32 planes each."""
+    ns = max(1, (1 << group) - 1)
+    return 4 * 4 * (l * kp1 * k * b + ns * kp1 * l * kp1 * k + group * k_halves * b + kp1 * k * b)
+
+
+def mad_ops(group: int, kp1: int, l: int, k: int, b: int) -> int:
+    """f32 instructions of a MAD call in the cheapest form with the same bits:
+    the subset MADs, the Horner sum and the g (phase - 1) combines."""
+    ns = max(1, (1 << group) - 1)
+    horner = kp1 * (ns * CMUL + (ns - 1) * CADD) + group * COMBINE if group else 0
+    return k * b * (ns * kp1 * l * kp1 * (CMUL + CADD) + horner)
+
+
 def phase_kernels(gen, hw):
     """Each kernel against its plain version at the main paths' shapes."""
-    from spf_tpu_torch.ops import encryption, fft, mad, phase_rot, rot_decomp
+    from spf_tpu_torch.ops import encryption, fft, phase_rot, rot_decomp
     from spf_tpu_torch.ops.multibit import n_groups
     from spf_tpu_torch.params import DEFAULT_128
 
@@ -192,9 +230,7 @@ def phase_kernels(gen, hw):
     pl = randn(kp1, n, b) * torch.exp2((exps - 26).clamp(min=0))
     ph.view(-1)[:4] = torch.tensor([2.0**31, -(2.0**31), 2.0**63, 2.0**84], device=dev)
     e = kp1 * n * b
-    # the rotation kernels: per-column t, the edge values in the first columns
-    t = torch.randint(0, 2 * n, (b,), generator=gen, device=dev)
-    t[:6] = torch.tensor([0, 1, n - 1, n, 2 * n - 1, 2 * n], device=dev)
+    t = rotation_t(gen, n, b)
 
     # fwd_ds: the signed digits [l, k+1, N, B] and a zero lo plane
     digits = torch.randint(-(1 << 15), 1 << 15, (l, kp1, n, b), generator=gen, device=dev).float()
@@ -222,17 +258,9 @@ def phase_kernels(gen, hw):
         ns = max(1, (1 << group) - 1)
         row_shape = (kp1, ll, kp1, k) if group == 0 else (ns, kp1, ll, kp1, k)
         row = spectrum(*row_shape, exp=60)
-        horner = kp1 * (ns * CMUL + (ns - 1) * CADD) + group * COMBINE if group else 0
-        if group == 0:
-            kernel, plain, args = mad.freq_mad, mad.freq_mad_plain, (d, row)
-        else:
-            def kernel(d_, r_, h_):
-                return mad.mad_horner(d_, r_, h_, group)
-
-            def plain(d_, r_, h_):
-                return mad.mad_horner_combine_plain(d_, r_, h_, group)
-
-            args = (d, row, (spectrum(group, klo, b, exp=0), spectrum(group, khi, b, exp=0)))
+        kernel, plain = mad_fns(group)
+        args = (d, row) if group == 0 else (
+            d, row, (spectrum(group, klo, b, exp=0), spectrum(group, khi, b, exp=0)))
         return dict(
             name=name, source="spf_tpu_torch/csrc/mad.cu", replaces="spf_tpu/ops/mad_pallas.py:94",
             note=f"mad.cu's g = {group} instance" + (
@@ -241,10 +269,65 @@ def phase_kernels(gen, hw):
                 "; also forms the g per-bit (phase - 1) factors from the step's halves "
                 "(Klo = Khi = 32), the combine XLA fuses on the TPU (spf_tpu/ops/multibit.py:213-245)"),
             kernel=kernel, plain=plain, args=args,
-            nbytes=4 * 4 * (ll * kp1 * k * b + ns * kp1 * ll * kp1 * k + group * (klo + khi) * b
-                            + kp1 * k * b),
-            ops=k * b * (ns * kp1 * ll * kp1 * (CMUL + CADD) + horner),
+            nbytes=mad_bytes(group, kp1, ll, k, b, klo + khi), ops=mad_ops(group, kp1, ll, k, b),
         )
+
+    def mad_any_kp1_case(group, kp1_):
+        """mad.cu's per-plane g-instance at k + 1 = kp1_ (the test sets' 3 and
+        4, GLWE_5_256_128's 6) at N = 256 (K = 128), B = 129; also B = 8."""
+        k_, l_, klo_, khi_ = 128, 2, 16, 8
+        ns = max(1, (1 << group) - 1)
+
+        def inputs(b_):
+            d = spectrum(l_, kp1_, k_, b_, exp=20)
+            row = spectrum(*((kp1_, l_, kp1_, k_) if group == 0 else (ns, kp1_, l_, kp1_, k_)),
+                           exp=60)
+            return (d, row) if group == 0 else (
+                d, row, (spectrum(group, klo_, b_, exp=0), spectrum(group, khi_, b_, exp=0)))
+
+        kernel, plain = mad_fns(group)
+        return dict(
+            name=f"mad_any_kp1_g{group} k+1={kp1_}", row=f"mad_any_kp1_g{group}",
+            source="spf_tpu_torch/csrc/mad.cu", replaces="spf_tpu/ops/mad_pallas.py:94",
+            note=f"mad.cu's per-plane g = {group} instance (k + 1 a runtime loop bound, one output "
+                 "plane a block); parts: k + 1 = 3, 4, 6 at [l = 2, k + 1, K = 128, B = 129], "
+                 "also held bit for bit at B = 8",
+            kernel=kernel, plain=plain, args=inputs(129), extra_args=[inputs(8)],
+            plain_copies=1,  # thousands of small launches: one copy times them
+            nbytes=mad_bytes(group, kp1_, l_, k_, 129, klo_ + khi_),
+            ops=mad_ops(group, kp1_, l_, k_, 129),
+        )
+
+    def rotation_case(fused, cols, **extra):
+        """A rotation kernel on the first `cols` columns (the paths' B = 256,
+        and 64, a small wave's batch): one part of the kernel's row."""
+        kernel_name = "rotate_sub_decompose_acc" if fused else "rotate_sub_decompose"
+        acc_, t_ = acc[..., :cols].contiguous(), t[:cols].contiguous()
+        if fused:
+            prod_ = (ph[..., :cols].contiguous(), pl[..., :cols].contiguous())
+            kernel = lambda a, p, tt: rot_decomp.rotate_sub_decompose_acc(a, p, tt, radix)
+            plain = lambda a, p, tt: rot_decomp.rotate_sub_decompose_acc_plain(a, p, tt, radix)
+            args = (acc_, prod_, t_)
+        else:
+            kernel = lambda a, tt: rot_decomp.rotate_sub_decompose(a, tt, radix)
+            plain = lambda a, tt: rot_decomp.rotate_sub_decompose_plain(a, tt, radix)
+            args = (acc_, t_)
+        return dict(
+            name=f"{kernel_name} B={cols}", row=kernel_name,
+            source="spf_tpu_torch/csrc/rot_decomp.cu",
+            replaces="spf_tpu/ops/rot_decomp_pallas.py:98" if fused
+            else "spf_tpu/ops/rot_decomp_pallas.py:182",
+            kernel=kernel, plain=plain, args=args,
+            # acc (+ ph, pl) read once, the digits (+ acc') written once
+            nbytes=acc_.numel() * (8 + (16 if fused else 0) + 4 * l) + 8 * cols,
+            ops=acc_.numel() * 18 if fused else 0,  # from_ds once an element; the rest integer
+            note=f"parts: [{kp1}, {n}, B] at B = {b} and 64; extra shapes held bit for bit: "
+                 f"N {ROT_NS} x B {ROT_BS}, P {ROT_PS}, t at its edges and random",
+            **extra)
+
+    rotation_cases = [case for fused in (False, True) for case in (
+        rotation_case(fused, b, extra_args=rotation_extra(gen, fused)),
+        rotation_case(fused, 64))]
 
     cases = [
         dict(
@@ -257,31 +340,13 @@ def phase_kernels(gen, hw):
             nbytes=e * (8 + 4 + 4 + 8 + 4 * l),
             ops=e * 18,  # the f32 work of from_ds; the rest is integer
         ),
-        dict(
-            name="rotate_sub_decompose",
-            source="spf_tpu_torch/csrc/rot_decomp.cu",
-            replaces="spf_tpu/ops/rot_decomp_pallas.py:182",
-            kernel=lambda a, tt: rot_decomp.rotate_sub_decompose(a, tt, radix),
-            plain=lambda a, tt: rot_decomp.rotate_sub_decompose_plain(a, tt, radix),
-            args=(acc, t),
-            nbytes=e * (8 + 4 * l) + 8 * b,
-            ops=0,  # integer work only
-        ),
-        dict(
-            name="rotate_sub_decompose_acc",
-            source="spf_tpu_torch/csrc/rot_decomp.cu",
-            replaces="spf_tpu/ops/rot_decomp_pallas.py:98",
-            kernel=lambda a, p, tt: rot_decomp.rotate_sub_decompose_acc(a, p, tt, radix),
-            plain=lambda a, p, tt: rot_decomp.rotate_sub_decompose_acc_plain(a, p, tt, radix),
-            args=(acc, (ph, pl), t),
-            nbytes=e * (8 + 4 + 4 + 8 + 4 * l) + 8 * b,
-            ops=e * 18,  # from_ds once per element; the rest is integer
-        ),
+        *rotation_cases,
         *fft_cases(gen, (digits, zeros), prod_f, digits_cbs),
         mad_case("mad_horner", GROUP, dfft),
         mad_case("mad_horner_g2", GROUP_CBS, dfft_cbs),
         mad_case("mad_horner_g1", 1, dfft),
         mad_case("freq_mad", 0, dfft),
+        *(mad_any_kp1_case(g, kp) for g in (3, 2, 1, 0) for kp in (3, 4, 6)),
         dict(
             name="fence",
             source="spf_tpu_torch/csrc/fence.cu",
@@ -301,6 +366,40 @@ def phase_kernels(gen, hw):
     for c in cases:
         c.setdefault("ops_per_s", f32_per_s)
     return merge_rows(cases, [measure(c) for c in cases])
+
+
+ROT_NS = (64, 1024, 2048)
+ROT_BS = (1, 3, 8, 64, 129, 256)
+ROT_PS = (1, 2, 3)
+
+
+def rotation_t(gen, n: int, b: int) -> torch.Tensor:
+    """A monomial exponent a column: random of either sign and beyond 2^40,
+    the edges 0, 1, N - 1, N, 2N - 1, 2N, negative ones and ones > 2^40 in
+    the first columns."""
+    t = torch.randint(-(1 << 41), 1 << 41, (b,), generator=gen, device="cuda")
+    edges = [0, 1, n - 1, n, 2 * n - 1, 2 * n, -1, -n, -(2 * n) - 3, (1 << 40) + 7,
+             -(1 << 40) - 5, 3 * n + 5]
+    t[:min(b, len(edges))] = torch.tensor(edges[:b], device="cuda")
+    return t
+
+
+def rotation_extra(gen, fused: bool):
+    """The rotation kernels' extra shapes: every N of ROT_NS with every B of
+    ROT_BS, P cycling through ROT_PS; the products over many magnitudes."""
+    from spf_tpu_torch.ops import encryption
+
+    for i, (n, b) in enumerate((n, b) for n in ROT_NS for b in ROT_BS):
+        p = ROT_PS[i % len(ROT_PS)]
+        acc = encryption.uniform_torus((p, n, b), gen)
+        t = rotation_t(gen, n, b)
+        if not fused:
+            yield acc, t
+            continue
+        exps = torch.randint(0, 86, (p, n, b), generator=gen, device="cuda").float()
+        ph = torch.randn((p, n, b), generator=gen, device="cuda") * torch.exp2(exps)
+        pl = torch.randn((p, n, b), generator=gen, device="cuda") * torch.exp2((exps - 26).clamp(min=0))
+        yield acc, (ph, pl), t
 
 
 FFT_KS = (2, 4, 32, 1024, 2048)
@@ -471,6 +570,7 @@ def measure(c) -> dict:
     """Run one case's kernel and plain version on the same inputs (bit for
     bit, also on `c["extra_args"]`), time both, and give the row of the
     kernels line."""
+    t0 = time.perf_counter()
     args = c["args"]
     got = c["kernel"](*args)
     want = c["plain"](*args)
@@ -502,7 +602,7 @@ def measure(c) -> dict:
         bitexact=exact, max_abs_err=err, ms=kernel_ms, kernel_ms=kernel_ms,
         plain_ms=plain_ms, library_ms=library_ms, bound_ms=bms, bound_by=by,
         share=bms / kernel_ms, bytes=c["nbytes"], ops=c["ops"], host_us_per_call=host_us,
-        note=c.get("note"), **extra,
+        note=c.get("note"), seconds=time.perf_counter() - t0, **extra,
     )
 
 
@@ -657,6 +757,69 @@ def phase_small_single_bit_and_cycle():
         raise AssertionError(f"small single-bit PBS / cycle: card and CPU disagree or decrypt fails: {res}")
 
 
+WIDE_KS = (2, 3, 5)  # GLWE sizes k whose k + 1 the MAD's per-plane instances serve
+
+
+def phase_wide_glwe():
+    """The entry points at k + 1 = 3, 4 and 6 (N = 256, n0 = 16, B = 8, radix
+    2x16): the multi-bit PBS at g = 3 and 2 and the single-bit PBS in its
+    three forms, as one path with the launch counts read around it (every
+    MAD launch on the per-plane instances), each output bit-identical to
+    the CPU's and decrypting right."""
+    from spf_tpu_torch.ops import encryption, torus
+    from spf_tpu_torch.ops.bootstrap import Bootstrap
+    from spf_tpu_torch.ops.lut import generate_lut_np
+    from spf_tpu_torch.ops.multibit import MultibitBootstrap, n_groups
+    from spf_tpu_torch.params import GlweDef, LweDef, RadixDecomposition
+
+    lwe = LweDef(dim=16, std=1e-16)
+    radix = RadixDecomposition(count=2, radix_log=16)
+    b = 8
+    rng = np.random.default_rng(SEED + 4)
+    lwe_sk = rng.integers(0, 2, lwe.dim).astype(np.int64)
+    msgs = np.arange(b, dtype=np.uint64) % 8
+    ct = torus.from_u64_np(encryption.encrypt_lwe_np(
+        rng, msgs << np.uint64(64 - BITS - 1), lwe_sk, lwe).T.copy())
+    runs = []  # (name, module on the CPU, module on the card, glwe_sk)
+    for kk in WIDE_KS:
+        glwe = GlweDef(size=kk, degree=256, std=1e-16)
+        gen = torch.Generator().manual_seed(SEED + kk)
+        glwe_sk = encryption.generate_glwe_sk(glwe, gen)
+        lut = generate_lut_np([lut_fn], glwe, BITS)
+        for group in (GROUP, GROUP_CBS):
+            bsk = encryption.generate_multibit_bsk(lwe_sk, glwe_sk, glwe, radix, group, gen)
+            runs.append((f"k+1={kk + 1} multi-bit g={group}", *(
+                MultibitBootstrap(bsk, lut, glwe, radix, group, device=d) for d in ("cpu", "cuda")),
+                glwe_sk))
+        bsk = encryption.generate_bsk(lwe_sk, glwe_sk, glwe, radix, gen)
+        for form, (fuse_rot, phase_rot) in FORMS.items():
+            runs.append((f"k+1={kk + 1} single-bit {form}", *(
+                Bootstrap(bsk, lut, glwe, radix, fuse_rot, phase_rot, device=d)
+                for d in ("cpu", "cuda")), glwe_sk))
+    steps, ks = lwe.dim, len(WIDE_KS)
+    g3, g2 = n_groups(lwe.dim, GROUP), n_groups(lwe.dim, GROUP_CBS)
+    want = expect_launches(
+        accumulate_decompose=ks * (g3 + g2 + steps), rotate_sub_decompose=ks * steps,
+        rotate_sub_decompose_acc=ks * steps, fwd_ds=ks * (g3 + g2 + 3 * steps),
+        inv_ds=ks * (g3 + g2 + 3 * steps), fence=ks * 3 * 8, mad_any_kp1_g3=ks * g3,
+        mad_any_kp1_g2=ks * g2, mad_any_kp1_g1=ks * steps, mad_any_kp1_g0=ks * 2 * steps)
+    ct_gpu = ct.cuda()
+    outs, _, launches, _ = drive(lambda: [gpu(ct_gpu) for _, _, gpu, _ in runs], want,
+                                 "k + 1 = 3, 4, 6")
+    res, ok = dict(phase="wide_glwe", n=256, n0=lwe.dim, batch=b), True
+    for (name, cpu, _, glwe_sk), out in zip(runs, outs):
+        exact = torch.equal(out.cpu(), cpu(ct))
+        n_correct, margin = decode(out, glwe_sk.numpy().reshape(-1).astype(np.uint64), lut_fn(msgs))
+        res[name] = dict(output_bitexact=exact, correct=f"{n_correct}/{b}",
+                         noise_margin_bits=margin)
+        ok = ok and exact and n_correct == b
+    res["launches"] = {k: v for k, v in launches.items() if v}
+    emit(res)
+    if not ok:
+        raise AssertionError(f"k + 1 = 3, 4, 6: card and CPU disagree or decrypt fails: {res}")
+    return {"k + 1 = 3, 4, 6": launches}
+
+
 def expect_launches(**counts) -> dict:
     from spf_tpu_torch import kernels
 
@@ -686,8 +849,9 @@ def drive(fn, want: dict, name: str):
 
 def wall_and_device(fn, calls: int):
     """Wall seconds of `calls` synchronised calls, and one profiled call's
-    device ms, top 8 kernels by device ms, and the device ms and launches of
-    every kernel that is not the port's (the glue)."""
+    device ms, top 8 kernels by device ms, the device ms and launches of
+    every kernel that is not the port's (the glue), and the device us a
+    launch of each of the port's kernels in it."""
     times = []
     for _ in range(calls):
         t0 = time.perf_counter()
@@ -697,8 +861,9 @@ def wall_and_device(fn, calls: int):
     kernels = profiled_kernels(fn)
     ranked = sorted(kernels.items(), key=lambda kv: -kv[1][0])
     glue = [v for name, v in kernels.items() if name.split("<")[0] not in PORT_KERNELS]
+    port = {name: 1e3 * ms / n for name, (ms, n) in ranked if name.split("<")[0] in PORT_KERNELS}
     return (times, sum(ms for ms, _ in kernels.values()), {n: ms for n, (ms, _) in ranked[:8]},
-            dict(ms=sum(ms for ms, _ in glue), launches=sum(n for _, n in glue)))
+            dict(ms=sum(ms for ms, _ in glue), launches=sum(n for _, n in glue)), port)
 
 
 def phase_main_path():
@@ -735,7 +900,7 @@ def phase_main_path():
 
     sk_flat = glwe_sk.cpu().numpy().reshape(-1).astype(np.uint64)
     n_correct, margin = decode(out, sk_flat, expected)
-    times, device_call_ms, by_kernel, glue = wall_and_device(lambda: pbs(ct), 5)
+    times, device_call_ms, by_kernel, glue, port_us = wall_and_device(lambda: pbs(ct), 5)
     med = statistics.median(times)
     res = dict(
         phase="main_path", path="multi-bit PBS", params="DEFAULT_128", group=GROUP, batch=BATCH,
@@ -744,7 +909,7 @@ def phase_main_path():
         launches={k: v for k, v in launches.items() if v}, pbs_call_s=times,
         pbs_per_s_median=BATCH / med, device_ms_per_call=device_call_ms,
         device_busy_share=device_call_ms / 1e3 / med, device_ms_by_kernel=by_kernel,
-        glue=glue, peak_device_mem_gib=peak_gib,
+        glue=glue, port_kernel_us_per_launch=port_us, peak_device_mem_gib=peak_gib,
     )
     emit(res)
     if tuple(out.shape) != (glwe.size * glwe.degree + 1, BATCH):
@@ -798,7 +963,7 @@ def phase_single_bit():
         convert_s = time.perf_counter() - t0
         out, first_s, launches, peak_gib = drive(lambda: pbs(ct), wants[form], f"path 2 ({form})")
         n_correct, margin = decode(out, sk_flat, expected)
-        times, device_call_ms, by_kernel, glue = wall_and_device(lambda: pbs(ct), 3)
+        times, device_call_ms, by_kernel, glue, port_us = wall_and_device(lambda: pbs(ct), 3)
         med = statistics.median(times)
         res[form] = dict(
             out_shape=list(out.shape), key_conversion_s=convert_s, first_call_s=first_s,
@@ -806,7 +971,7 @@ def phase_single_bit():
             launches={k: v for k, v in launches.items() if v}, pbs_call_s=times,
             pbs_per_s_median=BATCH / med, device_ms_per_call=device_call_ms,
             device_busy_share=device_call_ms / 1e3 / med, device_ms_by_kernel=by_kernel,
-            glue=glue, peak_device_mem_gib=peak_gib,
+            glue=glue, port_kernel_us_per_launch=port_us, peak_device_mem_gib=peak_gib,
         )
         by_path[f"single-bit PBS, {form}"] = launches
         if tuple(out.shape) != (glwe.size * glwe.degree + 1, BATCH) or n_correct != BATCH \
@@ -852,7 +1017,7 @@ def phase_cycle():
     )
     out, first_s, launches, peak_gib = drive(lambda: cycle(ct), want, "path 3 (conversion cycle)")
     n_correct, margin = decode(out, lwe_sk.astype(np.uint64), bits_in, bits=1)
-    times, device_call_ms, by_kernel, glue = wall_and_device(lambda: cycle(ct), 3)
+    times, device_call_ms, by_kernel, glue, port_us = wall_and_device(lambda: cycle(ct), 3)
     med = statistics.median(times)
     breakdown = cycle_breakdown(cycle, ct)
     res = dict(
@@ -864,7 +1029,8 @@ def phase_cycle():
         launches={k: v for k, v in launches.items() if v}, cycle_call_s=times,
         cycles_per_s_median=BATCH / med, device_ms_per_call=device_call_ms,
         device_busy_share=device_call_ms / 1e3 / med, device_ms_by_kernel=by_kernel,
-        glue=glue, peak_device_mem_gib=peak_gib, stages=breakdown,
+        glue=glue, port_kernel_us_per_launch=port_us, peak_device_mem_gib=peak_gib,
+        stages=breakdown,
     )
     emit(res)
     if tuple(out.shape) != (lwe.dim + 1, BATCH):
@@ -896,7 +1062,7 @@ def cycle_breakdown(cycle, ct) -> dict:
     }
     out = {}
     for name, fn in stages.items():
-        times, device_call_ms, by_kernel, _ = wall_and_device(fn, 2)
+        times, device_call_ms, by_kernel, _, _ = wall_and_device(fn, 2)
         out[name] = dict(wall_s=times, device_ms=device_call_ms,
                          top_kernels=dict(list(by_kernel.items())[:3]))
     return out
@@ -983,9 +1149,6 @@ def main() -> int:
         return 1
     from spf_tpu_torch.kernels import build as kbuild
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
     kind = torch.cuda.get_device_name(0)
     hw = card(torch.device("cuda", 0))
     print(hw["nvidia_smi"], flush=True)
@@ -1013,7 +1176,7 @@ def main() -> int:
 
     timed("small_pbs", phase_small_pbs)
     timed("small_single_bit_and_cycle", phase_small_single_bit_and_cycle)
-    by_path = {}
+    by_path = timed("wide_glwe", phase_wide_glwe)
     by_path.update(timed("main_path", phase_main_path))
     by_path.update(timed("single_bit_pbs", phase_single_bit))
     by_path.update(timed("conversion_cycle", phase_cycle))

@@ -18,13 +18,19 @@
 // in the evaluation order of _mad_horner_body (mad_pallas.py:51-90), so it
 // agrees with the plain version (combine_phase_minus_one per bit, freq_mad
 // per subset, nested_subset_sum) bit for bit. It takes any B and any
-// K = Klo * Khi up to 65,535, not only multiples of 128. Built for k+1 = 2 (every parameter
-// set's blind rotation has k = 1) and g = 3 (the multi-bit PBS), g = 2 (the
-// multi-bit rotation inside circuit bootstrapping, l = 4) and g = 1 (the
-// single-bit phase_rot step: one MAD times (phase - 1), the order of
-// bootstrap_u32.py:278-280). g = 0 is the plain MAD of one key row with no
-// phase (freq_mad, bootstrap_u32.py:161; XLA glue on the TPU), the
-// frequency-domain half of the single-bit plain and fuse_rot steps.
+// K = Klo * Khi up to 65,535, not only multiples of 128. Built for g = 3
+// (the multi-bit PBS), g = 2 (the multi-bit rotation inside circuit
+// bootstrapping, l = 4) and g = 1 (the single-bit phase_rot step: one MAD
+// times (phase - 1), the order of bootstrap_u32.py:278-280). g = 0 is the
+// plain MAD of one key row with no phase (freq_mad, bootstrap_u32.py:161;
+// XLA glue on the TPU), the frequency-domain half of the single-bit plain
+// and fuse_rot steps. k+1 = 2 (DEFAULT_128 and every 128-bit set but one)
+// has its own instances, below. Any other k+1 (the test sets' 3 and 4,
+// GLWE_5_256_128's 6) runs mad_plane_kernel: k+1 is a runtime loop bound
+// there and a block computes one output plane, so its registers do not grow
+// with k+1 (the accumulators of all k+1 planes at k+1 = 6, g = 3 would be
+// 168 floats). Each output plane's sums run in the same order as in the
+// k+1 = 2 instances, so the bits are the same.
 //
 // What bounds it on an H100: f32 instruction issue. At the main path's
 // shapes (g = 3, k+1 = 2, l = 2, K = 1024, B = 256) it moves ~27 MB (~8 us
@@ -68,6 +74,22 @@ struct Planes4 {
   }
 };
 
+// The step's (phase - 1) factor of each bit j < G at (bin, col):
+// u_j = cmul(hi[j][bin / Klo], lo[j][bin % Klo]) - 1 (combine_phase_minus_one)
+template <int G>
+__device__ __forceinline__ void step_factors(const Planes4& lo, const Planes4& hi, int bin,
+                                             int col, int k, int b, int klo, dsc* uu) {
+  const int khi = k / klo;
+  const size_t lo_at = (size_t)(bin % klo) * b + col;
+  const size_t hi_at = (size_t)(bin / klo) * b + col;
+#pragma unroll
+  for (int j = 0; j < G; ++j) {
+    const dsc f = cmul(hi.load((size_t)j * khi * b + hi_at), lo.load((size_t)j * klo * b + lo_at));
+    const ds2 re = ds_add(f.rh, f.rl, -1.0f, 0.0f);
+    uu[j] = {re.h, re.l, f.ih, f.il};
+  }
+}
+
 // R(J, BASE) over the subset MADs M[0 .. 2^G - 2] of one output plane
 template <int G, int J, int BASE>
 struct Horner {
@@ -105,19 +127,8 @@ __global__ void __launch_bounds__(THREADS)
   const size_t plane = (size_t)k * b;
   const size_t idx = (size_t)bin * b + col;
 
-  // u_j = cmul(hi[j][bin / Klo], lo[j][bin % Klo]) - 1 (combine_phase_minus_one)
   dsc uu[G == 0 ? 1 : G];
-  if constexpr (G > 0) {
-    const int khi = k / klo;
-    const size_t lo_at = (size_t)(bin % klo) * b + col;
-    const size_t hi_at = (size_t)(bin / klo) * b + col;
-#pragma unroll
-    for (int j = 0; j < G; ++j) {
-      const dsc f = cmul(hi.load((size_t)j * khi * b + hi_at), lo.load((size_t)j * klo * b + lo_at));
-      const ds2 re = ds_add(f.rh, f.rl, -1.0f, 0.0f);
-      uu[j] = {re.h, re.l, f.ih, f.il};
-    }
-  }
+  if constexpr (G > 0) step_factors<G>(lo, hi, bin, col, k, b, klo, uu);
 
   dsc mads[NS][KP1];
 #pragma unroll
@@ -168,6 +179,74 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+// The MAD for any k+1: one output plane o = blockIdx.z a block, the input
+// planes i a runtime loop; otherwise mad_horner_kernel's steps in its order.
+template <int G>
+__global__ void __launch_bounds__(THREADS)
+    mad_plane_kernel(Planes4 dfft, Planes4 row, Planes4 lo, Planes4 hi, float* __restrict__ orh,
+                     float* __restrict__ orl, float* __restrict__ oih, float* __restrict__ oil,
+                     int kp1, int l, int k, int b, int klo) {
+  constexpr int NS = G == 0 ? 1 : (1 << G) - 1;
+  extern __shared__ float4 key[];  // [k+1][l][NS]: this bin's key rows into plane o
+  const int bin = blockIdx.y;
+  const int o = blockIdx.z;
+  const int col = blockIdx.x * THREADS + threadIdx.x;
+
+  // row[m, i, j, o] -> key[(i * l + j) * NS + m]
+  for (int e = threadIdx.x; e < NS * kp1 * l; e += THREADS) {
+    const int m = e % NS, ij = e / NS;
+    const dsc r = row.load((size_t)(((m * kp1 + ij / l) * l + ij % l) * kp1 + o) * k + bin);
+    key[e] = make_float4(r.rh, r.rl, r.ih, r.il);
+  }
+  __syncthreads();
+  if (col >= b) return;
+  const size_t plane = (size_t)k * b;
+  const size_t idx = (size_t)bin * b + col;
+
+  dsc uu[G == 0 ? 1 : G];
+  if constexpr (G > 0) step_factors<G>(lo, hi, bin, col, k, b, klo, uu);
+
+  dsc mads[NS];
+#pragma unroll
+  for (int m = 0; m < NS; ++m) mads[m] = {0.f, 0.f, 0.f, 0.f};
+  // for each input plane i, digit level j (i outer): acc[m] += d[j, i] * row[m, i, j, o]
+#pragma unroll 1
+  for (int ij = 0; ij < kp1 * l; ++ij) {
+    const dsc d = dfft.load((size_t)(ij % l * kp1 + ij / l) * plane + idx);
+    const float4* kij = key + ij * NS;
+#pragma unroll
+    for (int m = 0; m < NS; ++m) {
+      const float4 r = kij[m];
+      mads[m] = cadd(mads[m], cmul(d, {r.x, r.y, r.z, r.w}));
+    }
+  }
+
+  dsc v;
+  if constexpr (G == 0) {
+    v = mads[0];
+  } else {
+    v = Horner<G, 0, 0>::eval(mads, uu);
+  }
+  const size_t out = (size_t)o * plane + idx;
+  orh[out] = v.rh;
+  orl[out] = v.rl;
+  oih[out] = v.ih;
+  oil[out] = v.il;
+}
+
+template <int G>
+int launch_planes(const Planes4& d, const Planes4& r, const Planes4& lo, const Planes4& hi,
+                  float* o0, float* o1, float* o2, float* o3, int kp1, int l, int k, int b,
+                  int klo, cudaStream_t stream) {
+  constexpr int NS = G == 0 ? 1 : (1 << G) - 1;
+  const size_t smem = sizeof(float4) * NS * kp1 * l;
+  if (k > 65535 || kp1 > 65535 || smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((b + THREADS - 1) / THREADS, k, kp1);
+  mad_plane_kernel<G><<<grid, THREADS, smem, stream>>>(d, r, lo, hi, o0, o1, o2, o3, kp1, l, k,
+                                                       b, klo);
+  return spf_last_error();
+}
+
 template <int KP1, int G>
 int launch(const Planes4& d, const Planes4& r, const Planes4& lo, const Planes4& hi, float* o0,
            float* o1, float* o2, float* o3, int l, int k, int b, int klo, cudaStream_t stream) {
@@ -192,7 +271,7 @@ extern "C" int spf_mad_horner(const float* d0, const float* d1, const float* d2,
                               const float* hi2, const float* hi3, float* o0, float* o1, float* o2,
                               float* o3, int kp1, int l, int g, int k, int b, int klo,
                               void* stream) {
-  if (l < 1 || k < 1 || b < 1 || (long long)k * b >= (1LL << 31))
+  if (kp1 < 1 || l < 1 || k < 1 || b < 1 || (long long)k * b >= (1LL << 31))
     return static_cast<int>(cudaErrorInvalidValue);
   if (g > 0 && (klo < 1 || k % klo != 0)) return static_cast<int>(cudaErrorInvalidValue);
   const Planes4 d{d0, d1, d2, d3}, r{r0, r1, r2, r3}, lo{lo0, lo1, lo2, lo3},
@@ -204,6 +283,14 @@ extern "C" int spf_mad_horner(const float* d0, const float* d1, const float* d2,
       case 1: return launch<2, 1>(d, r, lo, hi, o0, o1, o2, o3, l, k, b, klo, s);
       case 2: return launch<2, 2>(d, r, lo, hi, o0, o1, o2, o3, l, k, b, klo, s);
       case 3: return launch<2, 3>(d, r, lo, hi, o0, o1, o2, o3, l, k, b, klo, s);
+      default: break;
+    }
+  } else {
+    switch (g) {
+      case 0: return launch_planes<0>(d, r, lo, hi, o0, o1, o2, o3, kp1, l, k, b, klo, s);
+      case 1: return launch_planes<1>(d, r, lo, hi, o0, o1, o2, o3, kp1, l, k, b, klo, s);
+      case 2: return launch_planes<2>(d, r, lo, hi, o0, o1, o2, o3, kp1, l, k, b, klo, s);
+      case 3: return launch_planes<3>(d, r, lo, hi, o0, o1, o2, o3, kp1, l, k, b, klo, s);
       default: break;
     }
   }

@@ -5,7 +5,9 @@ launch count. Importing this package builds and loads nothing.
 its own: g = 3 (`mad_horner`, the multi-bit PBS), g = 2 (the multi-bit
 rotation inside circuit bootstrapping), g = 1 (the single-bit phase_rot
 step), each forming its step's (phase - 1) factors from their halves, and
-g = 0 (`freq_mad`, one key row with no phase)."""
+g = 0 (`freq_mad`, one key row with no phase). Those four are its k+1 = 2
+instances; every other k+1 runs its per-plane instance of the same g,
+counted as `mad_any_kp1_g<g>`."""
 
 from .build import Kernel
 
@@ -22,6 +24,7 @@ MAD_HORNER_G2 = Kernel("mad", "spf_mad_horner", _MAD_ARGS)
 MAD_HORNER_G1 = Kernel("mad", "spf_mad_horner", _MAD_ARGS)
 FREQ_MAD = Kernel("mad", "spf_mad_horner", _MAD_ARGS)
 MAD_BY_GROUP = {0: FREQ_MAD, 1: MAD_HORNER_G1, 2: MAD_HORNER_G2, 3: MAD_HORNER}
+MAD_ANY_KP1_BY_GROUP = {g: Kernel("mad", "spf_mad_horner", _MAD_ARGS) for g in range(4)}
 FENCE = Kernel("fence", "spf_fence", "ppip")
 PHASE_MINUS_ONE = Kernel("phase", "spf_phase_minus_one", "p" * 10 + "iip")
 # the probes of spf_tpu_torch.scripts.vpu_probe
@@ -40,6 +43,7 @@ ALL = {
     "mad_horner_g2": MAD_HORNER_G2,
     "mad_horner_g1": MAD_HORNER_G1,
     "freq_mad": FREQ_MAD,
+    **{f"mad_any_kp1_g{g}": k for g, k in MAD_ANY_KP1_BY_GROUP.items()},
     "fence": FENCE,
     "phase_minus_one": PHASE_MINUS_ONE,
     "chain": CHAIN,

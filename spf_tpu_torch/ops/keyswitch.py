@@ -1,4 +1,4 @@
-"""L1 -> L0 LWE keyswitch as one exact f32 matrix product.
+"""L1 -> L0 LWE keyswitch as one exact matrix product.
 
 Port of `spf_tpu/ops/keyswitch_u32.py`. The reference computes
 out = trivial(b) − Σ_i <decomp(a_i), LEV_i> in exact u64 arithmetic
@@ -15,11 +15,12 @@ product that is exact:
 - the byte-plane sums are recombined mod 2^64 through a ds f32 pair and
   `torus.from_ds`, in the reference's order (`keyswitch_u32.py:75-84`).
 
-The product runs in f32 with TF32 off: TF32 keeps 10 mantissa bits and
-would round the sums. `keyswitch_lwe` turns it off around its own matrix
-product whatever the caller set, and restores the setting. The TPU did
-this product with `jnp.dot` outside any Pallas kernel; here it is
-`torch.matmul` (cuBLAS on the card).
+The product runs in f64, which no precision setting of PyTorch reaches
+(TF32 or bf16 settings apply to f32 products only) and which is exact on
+the same integer operands, so it gives the sums an exact f32 product
+gives, whatever the caller set, without touching global state. The TPU
+did this product with `jnp.dot` outside any Pallas kernel; here it is
+`torch.matmul` (cuBLAS on the card), on planes kept in f64.
 """
 
 from __future__ import annotations
@@ -32,14 +33,15 @@ from . import ds, torus
 
 
 def ksk_to_byte_planes(ksk) -> torch.Tensor:
-    """Keyswitch key int64 tensor or u64 numpy [n_old, l, n_new+1] -> f32
+    """Keyswitch key int64 tensor or u64 numpy [n_old, l, n_new+1] -> f64
     byte planes [n_old*l, (n_new+1)*8], the 8 bytes of each output column
-    contiguous, least significant first (≙ `ksk_to_byte_planes`)."""
+    contiguous, least significant first (≙ `ksk_to_byte_planes`, whose
+    planes hold the same integers)."""
     ksk = torus.from_u64_np(ksk) if isinstance(ksk, np.ndarray) else ksk
     n_old, count, m = ksk.shape
     flat = ksk.reshape(n_old * count, m)
     planes = torch.stack([(flat >> (8 * k)) & 0xFF for k in range(8)], dim=-1)
-    return planes.reshape(n_old * count, m * 8).to(torch.float32)
+    return planes.reshape(n_old * count, m * 8).to(torch.float64)
 
 
 def keyswitch_lwe(ct: torch.Tensor, ksk_planes: torch.Tensor, old_lwe: LweDef,
@@ -52,13 +54,9 @@ def keyswitch_lwe(ct: torch.Tensor, ksk_planes: torch.Tensor, old_lwe: LweDef,
         raise ValueError("byte-plane accumulation would lose bits in f32")
     a, b = ct[:-1], ct[-1]  # [n_old, B], [B]
     digits = torus.decompose(a, radix)  # int32 [l, n_old, B]
-    d2 = digits.permute(2, 1, 0).reshape(-1, n_old * count).to(torch.float32)  # [B, n_old*l]
-    tf32 = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        sums = torch.matmul(d2, ksk_planes)  # [B, m*8], exact
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = tf32
+    d2 = digits.permute(2, 1, 0).reshape(-1, n_old * count)  # [B, n_old*l]
+    f64 = torch.float64
+    sums = torch.matmul(d2.to(f64), ksk_planes.to(f64)).to(torch.float32)  # [B, m*8], exact
     s = sums.reshape(-1, m, 8)
     hi = torch.zeros(s.shape[:2], dtype=torch.float32, device=s.device)
     lo = torch.zeros_like(hi)

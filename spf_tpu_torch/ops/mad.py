@@ -20,7 +20,10 @@ g = 1 (the single-bit phase_rot step, where it is exactly
 `cmul(freq_mad(..), pm1)`, `bootstrap_u32.py:278-280`), and its g = 0
 instance is `freq_mad`: the MAD of one key row with no phase
 (`bootstrap_u32.freq_mad`, XLA glue on the TPU), the frequency-domain
-half of the single-bit plain and fuse_rot steps.
+half of the single-bit plain and fuse_rot steps. k + 1 = 2 has its own
+instances (`kernels.MAD_BY_GROUP`); the other k + 1 of `MAD_KP1` run an
+instance that computes one output plane a block
+(`kernels.MAD_ANY_KP1_BY_GROUP`), with the same bits.
 """
 
 from __future__ import annotations
@@ -32,7 +35,9 @@ from ..kernels.build import check_cuda, dispatch, stream_of
 from . import ds
 from .phase_rot import combine_phase_minus_one
 
-MAD_KP1 = (2,)  # the k + 1 the kernel is built for (csrc/mad.cu); g: kernels.MAD_BY_GROUP
+# the k + 1 the kernel takes: every GLWE set's, each held bit for bit on the
+# card by chip_smoke.py (csrc/mad.cu runs any k + 1; g in 0..3)
+MAD_KP1 = (2, 3, 4, 6)
 
 
 def freq_mad_plain(dfft, ggsw_row):
@@ -111,8 +116,8 @@ def mad_horner_combine_plain(dfft, row, halves, group: int):
 def _mad_cuda(dfft, row, halves, group):
     """The kernel's g-instance; row [2^g-1, k+1, l, k+1, K] and the halves
     for g >= 1, row [k+1, l, k+1, K] for g = 0 (no halves)."""
-    kernel = kernels.MAD_BY_GROUP.get(group)
     l, kp1, k_, b = dfft[0].shape
+    kernel = (kernels.MAD_BY_GROUP if kp1 == 2 else kernels.MAD_ANY_KP1_BY_GROUP).get(group)
     ns = (1 << group) - 1
     if kp1 not in MAD_KP1 or kernel is None:
         raise ValueError(f"mad_horner: no kernel for k+1 = {kp1}, g = {group}")

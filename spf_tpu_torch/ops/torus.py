@@ -23,6 +23,7 @@ F32 = torch.float32
 
 _I32_MIN = -(1 << 31)
 _I32_MAX = (1 << 31) - 1
+_U32_MASK = (1 << 32) - 1
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -106,14 +107,14 @@ def monomial_mul(a, t):
 
 def modulus_switch(a, log_chi: int, log_v: int, log_modulus: int):
     """Round x << log_chi to log_modulus - log_v bits, shifted up by
-    log_v (≙ `limb32.modulus_switch`). Returns int64 values below
-    2^(log_modulus + log_v)."""
+    log_v, mod 2^32 (≙ `limb32.modulus_switch`, whose u32 result wraps).
+    Returns int64 values below 2^min(32, log_modulus + log_v)."""
     assert log_modulus <= 32
     x = a << log_chi if log_chi else a
     shift = TORUS_BITS - (log_modulus - log_v)
     assert shift >= 33, "log_modulus - log_v must be < 32"
     rbit = _shr(x, shift - 1) & 1
-    return ((_shr(x, shift) + rbit) & ((1 << log_modulus) - 1)) << log_v
+    return (((_shr(x, shift) + rbit) & ((1 << log_modulus) - 1)) << log_v) & _U32_MASK
 
 
 def decompose(a, radix: RadixDecomposition):

@@ -6,8 +6,9 @@
   multi-bit rotation with its phases hoisted and fenced;
 - `vpu_probe` (≙ `scripts/vpu_probe.py`): the card's f32 and i32 chain
   rates, the fma question, matrix-product rates and a roll;
-- `fft_ab` (the port's own): designs of the FFT kernels timed against
-  each other in turns, each a copy of the package with its own `fft.cu`.
+- `kernel_ab` (the port's own): designs of a kernel source (`fft.cu` or
+  `rot_decomp.cu`) timed against each other in turns, alone and inside
+  the path that runs them, each a copy of the package with its own source.
 
 Each runs on a CUDA card as `python -m spf_tpu_torch.scripts.<name>`
 (without a card it raises), prints one JSON line per measurement and

@@ -1,0 +1,273 @@
+"""A/B runs of designs of a kernel source on one CUDA card.
+
+    python -m spf_tpu_torch.scripts.kernel_ab [--source fft|rot_decomp] DIR [DIR ...] [--check DIR]
+
+Each DIR holds a copy of the package, `DIR/spf_tpu_torch/`, whose
+`csrc/<source>.cu` is one design (or one diagnostic edit of a design). The
+script builds every copy's library of that source at once, one nvcc each,
+then runs each copy in a process of its own, in turns (DIR_1 .. DIR_n,
+then DIR_n .. DIR_1), and prints one JSON line a run, each kernel held bit
+for bit against its plain version and timed by `device_ms` (device ms a
+call, with inputs rotating past the L2; host us a call):
+
+- `fft` (the default): `fwd_ds` at [P, 2048, 256] for P = 4 and 8 and
+  `inv_ds` at [P, 1024, 256] for P = 2 and 4 (DEFAULT_128 at batch 256:
+  the paths' shapes). `--check DIR` also holds that copy bit for bit at K
+  in {2, 4, 8, 16, 32, 64, 1024, 2048} with B in {1, 3, 8, 129, 256, 1024}
+  and P in {1, 2, 4, 8}, on signed digits with a zero lo plane, torus
+  values and spectra of magnitude 2^70. Each run also drives path 1 (the
+  multi-bit PBS at DEFAULT_128, batch 256) once under the profiler and
+  gives the FFTs' device ms a launch there, where each follows other
+  kernels.
+- `rot_decomp`: `rotate_sub_decompose` and `rotate_sub_decompose_acc` at
+  [2, 2048, B] for B = 256 and 64 (radix 2x16), and `accumulate_decompose`
+  at B = 256. `--check DIR` also holds the two rotation kernels bit for
+  bit at N in {2, 64, 1024, 2048}, B in {1, 3, 8, 64, 129, 256} and P in
+  {1, 2, 3}, with t at its edges and beyond 2N. Each run also drives path 2
+  (the single-bit PBS at DEFAULT_128, batch 256) once in its plain and its
+  fuse_rot form under the profiler: the rotation kernel's device ms a
+  launch there and the path's device ms a call.
+
+The build's lines give each kernel's registers and spills (ptxas), the
+last line the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+
+# run in a copy's directory: imports that copy's spf_tpu_torch
+RUN_FFT = r'''
+import json, sys, torch
+sys.path.insert(0, ".")
+from spf_tpu_torch.ops import encryption, fft, torus
+from spf_tpu_torch.scripts import device_ms
+
+gen = torch.Generator(device="cuda").manual_seed(7)
+
+def spectrum(p, k, b):
+    out = []
+    for _ in range(2):
+        hi = torch.randn((p, k, b), generator=gen, device="cuda") * 2.0**70
+        out += [hi, hi * torch.randn((p, k, b), generator=gen, device="cuda") * 2.0**-25]
+    return tuple(out)
+
+def digits(p, k, b):
+    d = torch.randint(-(1 << 15), 1 << 15, (p, 2 * k, b), generator=gen, device="cuda").float()
+    return d, torch.zeros_like(d)
+
+def same(a, b):
+    return all(torch.equal(x.view(torch.int32), y.view(torch.int32)) for x, y in zip(a, b))
+
+def copies(args):
+    nbytes = sum(t.numel() * 4 for a in args for t in (a if isinstance(a, tuple) else (a,)))
+    n = -(-2 * 50 * 2**20 // nbytes) + 1
+    clone = lambda a: tuple(t.clone() for t in a) if isinstance(a, tuple) else a.clone()
+    return [args] + [tuple(clone(a) for a in args) for _ in range(n - 1)]
+
+res = {}
+for name, kernel, plain, p, args in (
+        ("fwd_ds P=4", fft.fwd_ds, fft.fwd_ds_plain, 4, digits(4, 1024, 256)),
+        ("fwd_ds P=8", fft.fwd_ds, fft.fwd_ds_plain, 8, digits(8, 1024, 256)),
+        ("inv_ds P=2", fft.inv_ds, fft.inv_ds_plain, 2, (spectrum(2, 1024, 256),)),
+        ("inv_ds P=4", fft.inv_ds, fft.inv_ds_plain, 4, (spectrum(4, 1024, 256),))):
+    ok = same(kernel(*args), plain(*args))
+    ms, host_us = device_ms(kernel, copies(args), 50)
+    res[name] = dict(bitexact=ok, ms=ms, host_us=host_us)
+if sys.argv[1] == "check":
+    bad, n = [], 0
+    for k in (2, 4, 8, 16, 32, 64, 1024, 2048):
+        for b, p in ((1, 1), (3, 2), (8, 4), (129, 8), (256, 1), (1024, 2)):
+            for args in (digits(p, k, b), torus.to_ds(encryption.uniform_torus((p, 2 * k, b), gen))):
+                n += 1
+                if not same(fft.fwd_ds(*args), fft.fwd_ds_plain(*args)):
+                    bad.append(["fwd_ds", k, b, p])
+            s = spectrum(p, k, b)
+            n += 1
+            if not same(fft.inv_ds(s), fft.inv_ds_plain(s)):
+                bad.append(["inv_ds", k, b, p])
+    res["shapes"] = dict(checked=n, not_bitexact=bad)
+
+# in path 1 (the multi-bit PBS at DEFAULT_128, g = 3, batch 256), where each
+# FFT launch follows other kernels: its device ms a launch, by the profiler
+import numpy as np
+from spf_tpu_torch.ops.lut import generate_lut_np
+from spf_tpu_torch.ops.multibit import MultibitBootstrap
+from spf_tpu_torch.params import DEFAULT_128
+from spf_tpu_torch.scripts import profiled_kernels
+
+lwe, glwe, radix = DEFAULT_128.l0_params, DEFAULT_128.l1_params, DEFAULT_128.pbs_radix
+rng = np.random.default_rng(1)
+lwe_sk = rng.integers(0, 2, lwe.dim).astype(np.int64)
+bsk = encryption.generate_multibit_bsk(lwe_sk, encryption.generate_glwe_sk(glwe, gen), glwe,
+                                       radix, 3, gen)
+pbs = MultibitBootstrap(bsk, generate_lut_np([lambda m: (m + 1) % 8], glwe, 3), glwe, radix, 3)
+del bsk
+cts = encryption.encrypt_lwe_np(rng, (np.arange(256, dtype=np.uint64) % 8) << np.uint64(60),
+                                lwe_sk, lwe)
+ct = torus.from_u64_np(cts.T.copy(), "cuda")
+pbs(ct)
+torch.cuda.synchronize()
+by_name = profiled_kernels(lambda: pbs(ct))
+path = {"device_ms": sum(ms for ms, _ in by_name.values())}
+for name, (ms, n) in by_name.items():
+    for kernel in ("fwd_ds", "inv_ds"):
+        if name.startswith(kernel + "_kernel"):
+            path[kernel + " ms"] = ms / n
+res["path 1"] = path
+print("RESULT " + json.dumps(res), flush=True)
+'''
+
+RUN_ROT = r'''
+import json, sys, torch
+sys.path.insert(0, ".")
+from spf_tpu_torch.ops import encryption, rot_decomp, torus
+from spf_tpu_torch.params import DEFAULT_128
+from spf_tpu_torch.scripts import device_ms, profiled_kernels
+
+gen = torch.Generator(device="cuda").manual_seed(7)
+radix = DEFAULT_128.pbs_radix
+
+def inputs(p, n, b):
+    acc = encryption.uniform_torus((p, n, b), gen)
+    exps = torch.randint(0, 86, (p, n, b), generator=gen, device="cuda").float()
+    ph = torch.randn((p, n, b), generator=gen, device="cuda") * torch.exp2(exps)
+    pl = torch.randn((p, n, b), generator=gen, device="cuda") * torch.exp2((exps - 26).clamp(min=0))
+    t = torch.randint(-(1 << 41), 1 << 41, (b,), generator=gen, device="cuda")
+    edges = [0, 1, n - 1, n, 2 * n - 1, 2 * n, -1, -(2 * n) - 3, (1 << 40) + 7, 3 * n + 5]
+    t[:min(b, len(edges))] = torch.tensor(edges[:b], device="cuda")
+    return acc, (ph, pl), t
+
+def same(a, b):
+    a = a if isinstance(a, tuple) else (a,)
+    b = b if isinstance(b, tuple) else (b,)
+    return all(torch.equal(x.view(torch.int32), y.view(torch.int32)) if x.dtype == torch.float32
+               else torch.equal(x, y) for x, y in zip(a, b))
+
+def copies(args, nbytes):
+    n = -(-2 * 50 * 2**20 // nbytes) + 1
+    def clone(a):
+        return tuple(clone(x) for x in a) if isinstance(a, tuple) else a.clone()
+    return [args] + [clone(args) for _ in range(n - 1)]
+
+def kernels(acc, prod, t):
+    return {
+        "rotate_sub_decompose": (lambda a, tt: rot_decomp.rotate_sub_decompose(a, tt, radix),
+                                 lambda a, tt: rot_decomp.rotate_sub_decompose_plain(a, tt, radix),
+                                 (acc, t), acc.numel() * 16),
+        "rotate_sub_decompose_acc": (
+            lambda a, p, tt: rot_decomp.rotate_sub_decompose_acc(a, p, tt, radix),
+            lambda a, p, tt: rot_decomp.rotate_sub_decompose_acc_plain(a, p, tt, radix),
+            (acc, prod, t), acc.numel() * 32),
+        "accumulate_decompose": (lambda a, p: rot_decomp.accumulate_decompose(a, p, radix),
+                                 lambda a, p: rot_decomp.accumulate_decompose_plain(a, p, radix),
+                                 (acc, prod), acc.numel() * 32),
+    }
+
+res = {}
+for b in (256, 64):
+    for name, (kernel, plain, args, nbytes) in kernels(*inputs(2, 2048, b)).items():
+        if name == "accumulate_decompose" and b != 256:
+            continue
+        ok = same(kernel(*args), plain(*args))
+        ms, host_us = device_ms(kernel, copies(args, nbytes), 50)
+        res[f"{name} B={b}"] = dict(bitexact=ok, ms=ms, host_us=host_us)
+if sys.argv[1] == "check":
+    bad, n = [], 0
+    for nn in (2, 64, 1024, 2048):
+        for i, b in enumerate((1, 3, 8, 64, 129, 256)):
+            p = (1, 2, 3)[i % 3]
+            for name, (kernel, plain, args, _) in kernels(*inputs(p, nn, b)).items():
+                if name != "accumulate_decompose":
+                    n += 1
+                    if not same(kernel(*args), plain(*args)):
+                        bad.append([name, p, nn, b])
+    res["shapes"] = dict(checked=n, not_bitexact=bad)
+
+# in path 2 (the single-bit PBS at DEFAULT_128, batch 256), plain and
+# fuse_rot, where each rotation launch follows other kernels
+import numpy as np
+from spf_tpu_torch.ops.bootstrap import Bootstrap
+from spf_tpu_torch.ops.lut import generate_lut_np
+
+lwe, glwe = DEFAULT_128.l0_params, DEFAULT_128.l1_params
+rng = np.random.default_rng(1)
+lwe_sk = rng.integers(0, 2, lwe.dim).astype(np.int64)
+bsk = encryption.generate_bsk(lwe_sk, encryption.generate_glwe_sk(glwe, gen), glwe, radix, gen)
+lut = generate_lut_np([lambda m: (m + 1) % 8], glwe, 3)
+cts = encryption.encrypt_lwe_np(rng, (np.arange(256, dtype=np.uint64) % 8) << np.uint64(60),
+                                lwe_sk, lwe)
+ct = torus.from_u64_np(cts.T.copy(), "cuda")
+for form, fuse_rot in (("plain", False), ("fuse_rot", True)):
+    pbs = Bootstrap(bsk, lut, glwe, radix, fuse_rot, False)
+    pbs(ct)
+    torch.cuda.synchronize()
+    by_name = profiled_kernels(lambda: pbs(ct))
+    path = {"device_ms": sum(ms for ms, _ in by_name.values())}
+    for name, (ms, n) in by_name.items():
+        if name.startswith("rotate_sub_decompose"):
+            path[name + " ms"] = ms / n
+            path["launches"] = n
+    res["path 2 " + form] = path
+    del pbs
+print("RESULT " + json.dumps(res), flush=True)
+'''
+
+RUN = {"fft": RUN_FFT, "rot_decomp": RUN_ROT}
+BUILD = ("import sys; sys.path.insert(0, '.'); from spf_tpu_torch.kernels import build; "
+         "build.build((sys.argv[1],))")
+
+
+def main(argv=None) -> list:
+    import torch
+
+    from . import card, emit
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("kernel_ab: no CUDA device")
+    args = list(sys.argv[1:] if argv is None else argv)
+    source = "fft"
+    if "--source" in args:
+        i = args.index("--source")
+        source = args[i + 1]
+        del args[i:i + 2]
+    if source not in RUN:
+        raise ValueError(f"kernel_ab: --source {source}: one of {sorted(RUN)}")
+    check = None
+    if "--check" in args:
+        i = args.index("--check")
+        check = args[i + 1]
+        del args[i:i + 2]
+    dirs = args + ([check] if check else [])
+    lines = []
+    procs = {d: subprocess.Popen([sys.executable, "-c", BUILD, source], cwd=d,
+                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for d in dirs}
+    for d, proc in procs.items():
+        out, _ = proc.communicate()
+        log = os.path.join(d, "spf_tpu_torch", "_build", f"{source}.log")
+        ptxas = []
+        if os.path.exists(log):
+            with open(log, errors="replace") as fh:
+                ptxas = [ln.strip() for ln in fh
+                         if "Function properties" in ln or "registers" in ln or "spill" in ln]
+        lines.append(emit(dict(design=d, build_rc=proc.returncode, ptxas=ptxas,
+                               error=out[-2000:] if proc.returncode else None)))
+    for d in dirs + dirs[::-1]:
+        mode = "check" if d == check else "time"
+        check = None if d == check else check  # the shape check once
+        run = subprocess.run([sys.executable, "-c", RUN[source], mode], cwd=d,
+                             capture_output=True, text=True, timeout=900)
+        got = [ln for ln in run.stdout.splitlines() if ln.startswith("RESULT ")]
+        lines.append(emit(dict(design=d, rc=run.returncode,
+                               result=json.loads(got[0][7:]) if got else None,
+                               error=run.stderr[-2000:] if run.returncode else None)))
+    lines.append(emit(dict(card=card(torch.device("cuda", 0))["nvidia_smi"])))
+    return lines
+
+
+if __name__ == "__main__":
+    main()

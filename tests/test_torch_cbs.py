@@ -223,6 +223,26 @@ def test_keyswitch_lwe_bit_for_bit(keys):
     _eq_torus(got, want)
 
 
+def test_keyswitch_lwe_under_tf32_setting(keys):
+    """A caller's `fp32_precision = "tf32"` neither raises in the keyswitch
+    nor changes its bits (the product runs in f64, which the setting does
+    not reach); the setting is restored after."""
+    ct = _random_torus(6, (N + 1, B))
+    matmul = torch.backends.cuda.matmul
+    old = matmul.fp32_precision
+    matmul.fp32_precision = "tf32"
+    try:
+        got = keyswitch.keyswitch_lwe(torus.from_u64_np(ct), keyswitch.ksk_to_byte_planes(keys["ksk"]),
+                                      GLWE.as_lwe_def(), LWE, PARAMS.ks_radix)
+        assert matmul.fp32_precision == "tf32"
+    finally:
+        matmul.fp32_precision = old
+    want = ku.keyswitch_lwe_u32(lb.from_u64_np(ct), ku.ksk_to_byte_planes(keys["ksk"]),
+                                J_PARAMS.l1_params.as_lwe_def(), J_PARAMS.l0_params,
+                                J_PARAMS.ks_radix)
+    _eq_torus(got, want)
+
+
 @pytest.mark.parametrize("n, count, log_b", [(64, 4, 4), (128, 2, 9), (64, 3, 5)])
 def test_cbs_lut_matches(n, count, log_b):
     got = cbs.multifunctional_cbs_lut_np(convert.param(JGlwe(1, n, 0.0)), RadixDecomposition(count, log_b))

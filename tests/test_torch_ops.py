@@ -17,6 +17,8 @@ reference of tests/test_torch_multibit.py compiles at the same shapes,
 so one process compiles each of them once.
 """
 
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -210,6 +212,19 @@ def test_mad_horner_refuses(bad):
     hi = tuple(torch.zeros((group, khi, b), device=dev) for _ in range(4))
     with pytest.raises(ValueError, match="unsupported device" if bad == "device" else "halves"):
         mad.mad_horner(dfft, row, (lo, hi), group)
+
+
+@pytest.mark.parametrize("package", ["spf_tpu_torch.params", "spf_tpu.params"])
+def test_mad_kp1_covers_every_glwe_set(package):
+    """`mad.MAD_KP1`, the k + 1 the MAD kernel takes on the card, holds the
+    k + 1 of every GLWE set and of every parameter set's L1 GLWE in both
+    packages (the reference's: 2, 3, 4 and 6)."""
+    mod = importlib.import_module(package)
+    sets = [v for v in vars(mod).values() if isinstance(v, mod.GlweDef)]
+    sets += [v.l1_params for v in vars(mod).values() if isinstance(v, mod.Params)]
+    kp1 = {g.size + 1 for g in sets}
+    assert package == "spf_tpu_torch.params" or kp1 == {2, 3, 4, 6}
+    assert kp1 <= set(mad.MAD_KP1), f"{package}: k + 1 {sorted(kp1)}, kernel {mad.MAD_KP1}"
 
 
 def test_phase_factors_match_reference():

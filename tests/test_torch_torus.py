@@ -99,9 +99,13 @@ def test_decompose(count, log_b):
     np.testing.assert_array_equal(got.numpy(), np.asarray(lb.decompose(_limb(x), jradix)))
 
 
-@pytest.mark.parametrize("log_chi,log_v,log_modulus", [(0, 0, 12), (0, 0, 9), (2, 0, 12), (0, 3, 13)])
+@pytest.mark.parametrize("log_chi,log_v,log_modulus", [
+    (0, 0, 12), (0, 0, 9), (2, 0, 12), (0, 3, 13),
+    # log_modulus 32: the reference's u32 result wraps where log_modulus + log_v > 32
+    (0, 1, 32), (0, 2, 32), (0, 3, 32),
+])
 def test_modulus_switch(log_chi, log_v, log_modulus):
-    x = _values()
+    x = np.concatenate([_values(), np.array([0xFFFFFFFF_00000000], dtype=np.uint64)])
     got = torus.modulus_switch(_port(x), log_chi, log_v, log_modulus)
     want = np.asarray(lb.modulus_switch(_limb(x), log_chi, log_v, log_modulus))
     np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
