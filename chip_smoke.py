@@ -20,7 +20,13 @@ Phases, each printing one JSON line with its seconds:
    > 2^40) and random; the MADs with random phase factor halves,
    Klo = Khi = 32, and each per-plane instance, g = 0-3, at k + 1 = 3, 4
    and 6, N = 256, B = 129 and 8; `fence` also on odd lengths at each offset
-   within 16 bytes and below one vector; `fwd_ds` and `inv_ds` also at
+   within 16 bytes and below one vector; the batched-row MAD
+   (`freq_mad_batched`) at l = 4, K = 1024, B = 256, 32, 64 and 129 over a
+   slot buffer of 256 GGSWs, slots repeating and out of order, and on a
+   batched row; the kernels of the CBS and the CMux (`accumulate_decompose`
+   at the CBS radix, `mad_horner` g = 2, `fence`, `fwd_ds` P = 8, `inv_ds`
+   P = 2 and 4) also at B = 32 and 64, the widths of the wave machine's
+   small waves; `fwd_ds` and `inv_ds` also at
    every K of FFT_KS with ragged B and P up to 8, and timed at each P the
    paths give them, beside torch.fft.fft of complex128 [P, K, B] as a
    yardstick of the card), with both timed (device time:
@@ -57,7 +63,19 @@ Phases, each printing one JSON line with its seconds:
    noise margin >= 2 bits; the TPU's run of the same arithmetic recorded
    3.1), 3 timed cycles and one profiled, then each stage of the cycle
    run alone (wall and device time);
-8. the probes, as one path with the launch counts read around it: the
+8. a small wave machine run (N = 256, n0 = 8: a u2 add and a NOT through
+   fluent graphs) on the card and on the CPU, through the WaveMachine and
+   the per-wave U32CircuitExecutor: four bit-identical outputs;
+9. path 6, bench.py --intop's add8, mul8 and mul16 at DEFAULT_128 through
+   the WaveMachine (keys on the card, 128 L0 input bits encrypted on the
+   host, one FheCircuit holding every instance): each workload's first
+   call with the launch counts read around it and held against the counts
+   its schedule implies, every instance decrypting right with a worst
+   noise margin of at least 2 bits (printed beside the TPU's record), its
+   wave statistics beside the TPU's, add8 also through the per-wave
+   executor (the same values), then the median latency of 3 calls (1 for
+   mul16) and one profiled call (device ms by kernel and glue, busy share);
+10. the probes, as one path with the launch counts read around it: the
    entry points `spf_tpu_torch.scripts.step_microbench`, `gap_probe2` and
    `vpu_probe` through their main() (their lines are printed as they
    come): exactly ITERS launches of `phase_minus_one` in each pm1
@@ -121,7 +139,8 @@ COMBINE = CMUL + DS_ADD
 # the port's kernels (csrc/*.cu) by name; every other kernel in a profile
 # is PyTorch's: the glue around them
 PORT_KERNELS = ("accumulate_decompose_kernel", "rotate_sub_decompose_kernel", "fwd_ds_kernel",
-                "inv_ds_kernel", "mad_horner_kernel", "mad_plane_kernel", "copy_kernel",
+                "inv_ds_kernel", "mad_horner_kernel", "mad_plane_kernel", "mad_batched_kernel",
+                "copy_kernel",
                 "phase_kernel", "chain_kernel",
                 "fma_probe_kernel", "fma_probe_fma_kernel", "roll_kernel")
 
@@ -251,16 +270,22 @@ def phase_kernels(gen, hw):
     klo = 1 << (logk // 2)
     khi = k // klo
 
-    def mad_case(name, group, d):
+    def mad_case(name, group, d, extra_bs=()):
         """mad_horner's g-instance (g = 0: freq_mad) on digit spectra d,
-        with random phase factor halves for g >= 1."""
+        with random phase factor halves for g >= 1; also held bit for bit on
+        the first columns of d at each width of `extra_bs`."""
         ll = d[0].shape[0]
         ns = max(1, (1 << group) - 1)
         row_shape = (kp1, ll, kp1, k) if group == 0 else (ns, kp1, ll, kp1, k)
         row = spectrum(*row_shape, exp=60)
         kernel, plain = mad_fns(group)
-        args = (d, row) if group == 0 else (
-            d, row, (spectrum(group, klo, b, exp=0), spectrum(group, khi, b, exp=0)))
+
+        def args_at(cols):
+            dd = tuple(x[..., :cols].contiguous() for x in d)
+            return (dd, row) if group == 0 else (
+                dd, row, (spectrum(group, klo, cols, exp=0), spectrum(group, khi, cols, exp=0)))
+
+        args = args_at(b)
         return dict(
             name=name, source="spf_tpu_torch/csrc/mad.cu", replaces="spf_tpu/ops/mad_pallas.py:94",
             note=f"mad.cu's g = {group} instance" + (
@@ -268,7 +293,7 @@ def phase_kernels(gen, hw):
                 if group == 0 else
                 "; also forms the g per-bit (phase - 1) factors from the step's halves "
                 "(Klo = Khi = 32), the combine XLA fuses on the TPU (spf_tpu/ops/multibit.py:213-245)"),
-            kernel=kernel, plain=plain, args=args,
+            kernel=kernel, plain=plain, args=args, extra_args=[args_at(c) for c in extra_bs],
             nbytes=mad_bytes(group, kp1, ll, k, b, klo + khi), ops=mad_ops(group, kp1, ll, k, b),
         )
 
@@ -334,19 +359,24 @@ def phase_kernels(gen, hw):
             name="accumulate_decompose",
             source="spf_tpu_torch/csrc/rot_decomp.cu",
             replaces="spf_tpu/ops/rot_decomp_pallas.py:147",
-            kernel=lambda a, p: rot_decomp.accumulate_decompose(a, p, radix),
-            plain=lambda a, p: rot_decomp.accumulate_decompose_plain(a, p, radix),
+            kernel=lambda a, p, r=radix: rot_decomp.accumulate_decompose(a, p, r),
+            plain=lambda a, p, r=radix: rot_decomp.accumulate_decompose_plain(a, p, r),
             args=(acc, (ph, pl)),
+            # the CBS rotation's radix at the widths of small waves
+            extra_args=[(acc[..., :c].contiguous(), (ph[..., :c].contiguous(),
+                                                     pl[..., :c].contiguous()),
+                         DEFAULT_128.cbs_pbs_radix) for c in SMALL_WAVES],
             nbytes=e * (8 + 4 + 4 + 8 + 4 * l),
             ops=e * 18,  # the f32 work of from_ds; the rest is integer
         ),
         *rotation_cases,
         *fft_cases(gen, (digits, zeros), prod_f, digits_cbs),
         mad_case("mad_horner", GROUP, dfft),
-        mad_case("mad_horner_g2", GROUP_CBS, dfft_cbs),
+        mad_case("mad_horner_g2", GROUP_CBS, dfft_cbs, extra_bs=SMALL_WAVES),
         mad_case("mad_horner_g1", 1, dfft),
         mad_case("freq_mad", 0, dfft),
         *(mad_any_kp1_case(g, kp) for g in (3, 2, 1, 0) for kp in (3, 4, 6)),
+        *batched_mad_cases(gen, dfft_cbs),
         dict(
             name="fence",
             source="spf_tpu_torch/csrc/fence.cu",
@@ -356,7 +386,7 @@ def phase_kernels(gen, hw):
             plain_is_one_launch=True,  # clone: timed as the kernel is
             library=lambda x: x.clone(),
             args=(factors,),
-            extra_args=fence_extra,
+            extra_args=fence_extra + [(factors[..., :c].contiguous(),) for c in SMALL_WAVES],
             nbytes=2 * 4 * factors.numel(),
             ops=0,
         ),
@@ -366,6 +396,57 @@ def phase_kernels(gen, hw):
     for c in cases:
         c.setdefault("ops_per_s", f32_per_s)
     return merge_rows(cases, [measure(c) for c in cases])
+
+
+# the widths below 256 of the wave machine's CMux (64) and CBS (32) waves
+# (`runtime/wave_machine.py::_WIDTHS`): the kernels of both held there too
+SMALL_WAVES = (32, 64)
+BATCHED_BS = (256, 32, 64, 129)  # the batched-row MAD's widths, over a slot buffer of 256
+BATCHED_SLOTS = 256
+
+
+def batched_mad_cases(gen, dfft_cbs) -> list:
+    """The batched-row MAD (`freq_mad_batched`) at [l = 4, k+1 = 2, K = 1024]
+    and B of BATCHED_BS over a slot-major buffer of BATCHED_SLOTS GGSWs, the
+    slot indices random (repeating, out of order); the first part also on
+    a batched row [k+1, l, k+1, K, B] as circuit bootstrapping makes them
+    (no slot indices). One row with a part a width; the bound counts the
+    distinct slots the indices name."""
+    from spf_tpu_torch.ops import mad
+
+    dev = "cuda"
+    l, kp1, k, _ = dfft_cbs[0].shape
+
+    def spectrum(*shape, exp=60):
+        out = []
+        for _ in range(2):
+            hi = torch.randn(shape, generator=gen, device=dev) * 2.0**exp
+            out += [hi, hi * torch.randn(shape, generator=gen, device=dev) * 2.0**-25]
+        return tuple(out)
+
+    rows = spectrum(BATCHED_SLOTS, kp1, l, kp1, k)
+    row_bytes = 16 * kp1 * l * kp1 * k
+    cases = []
+    for cols in BATCHED_BS:
+        d = tuple(x[..., :cols].contiguous() for x in dfft_cbs)
+        slots = torch.randint(0, BATCHED_SLOTS, (cols,), generator=gen, device=dev,
+                              dtype=torch.int32)
+        distinct = int(torch.unique(slots).numel())
+        extra = [(d, spectrum(kp1, l, kp1, k, cols), None, -1)] if cols == BATCHED_BS[0] else []
+        cases.append(dict(
+            name=f"freq_mad_batched B={cols}", row="freq_mad_batched",
+            source="spf_tpu_torch/csrc/mad.cu", replaces="spf_tpu/ops/mad_pallas.py:94",
+            note="mad.cu's batched-row g = 0 MAD (`mad_batched_kernel`): each column reads its "
+                 "own GGSW row in place, in place of the XLA glue freq_mad under a batched row "
+                 "(spf_tpu/ops/bootstrap_u32.py:161-178); parts: B = 256, 32, 64, 129 over a "
+                 f"slot buffer of {BATCHED_SLOTS} (slots repeating, out of order; the bound "
+                 "counts the distinct slots), B = 256 also on a batched row",
+            kernel=mad.freq_mad_batched, plain=mad.freq_mad_batched_plain,
+            args=(d, rows, slots, 0), extra_args=extra,
+            nbytes=distinct * row_bytes + 16 * (l * kp1 + kp1) * k * cols + 4 * cols,
+            ops=k * cols * kp1 * l * kp1 * (CMUL + CADD), distinct_slots=distinct,
+        ))
+    return cases
 
 
 ROT_NS = (64, 1024, 2048)
@@ -471,12 +552,18 @@ def fft_cases(gen, fwd_args, prod_f, digits_cbs) -> list:
     digits, zeros = fwd_args
     kp1, k, b = prod_f[0].shape
     p_fwd = digits.shape[0] * digits.shape[1]
+    small_fwd = [(digits_cbs[..., :c].contiguous(), torch.zeros_like(digits_cbs[..., :c]))
+                 for c in SMALL_WAVES]  # the CMux and CBS waves' widths, P = 8
+
+    def small_inv(p):
+        return [(spectrum(p, k, c),) for c in SMALL_WAVES]
+
     return [
         case(False, fwd_args, p_fwd, k, b, extra_args=fwd_extra()),
         case(False, (digits_cbs, torch.zeros_like(digits_cbs)),
-             digits_cbs.shape[0] * digits_cbs.shape[1], k, b),
-        case(True, (prod_f,), kp1, k, b, extra_args=inv_extra()),
-        case(True, (spectrum(2 * kp1, k, b),), 2 * kp1, k, b),
+             digits_cbs.shape[0] * digits_cbs.shape[1], k, b, extra_args=small_fwd),
+        case(True, (prod_f,), kp1, k, b, extra_args=[*inv_extra(), *small_inv(kp1)]),
+        case(True, (spectrum(2 * kp1, k, b),), 2 * kp1, k, b, extra_args=small_inv(2 * kp1)),
     ]
 
 
@@ -560,7 +647,7 @@ def merge_rows(cases, results) -> list:
         m = merged[name]
         m["parts"][r["name"]] = {key: r[key] for key in (
             "bitexact", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "share",
-            "host_us_per_call", "yardstick_ms") if key in r}
+            "host_us_per_call", "yardstick_ms", "distinct_slots") if key in r}
         m["bitexact"] = m["bitexact"] and r["bitexact"]
         m["max_abs_err"] = max(m["max_abs_err"], r["max_abs_err"])
     return rows
@@ -603,6 +690,7 @@ def measure(c) -> dict:
         plain_ms=plain_ms, library_ms=library_ms, bound_ms=bms, bound_by=by,
         share=bms / kernel_ms, bytes=c["nbytes"], ops=c["ops"], host_us_per_call=host_us,
         note=c.get("note"), seconds=time.perf_counter() - t0, **extra,
+        **{k: c[k] for k in ("distinct_slots",) if k in c},
     )
 
 
@@ -1014,6 +1102,7 @@ def phase_cycle():
         accumulate_decompose=ng, mad_horner_g2=ng, fence=8,
         fwd_ds=ng + rounds + 3 + 1,  # rotation, trace, scheme switch (b, digits, GLEV), CMux
         inv_ds=ng + rounds + 1,  # rotation, trace, CMux
+        freq_mad_batched=1,  # the CMux under the CBS output's batched row
     )
     out, first_s, launches, peak_gib = drive(lambda: cycle(ct), want, "path 3 (conversion cycle)")
     n_correct, margin = decode(out, lwe_sk.astype(np.uint64), bits_in, bits=1)
@@ -1038,6 +1127,248 @@ def phase_cycle():
     if n_correct != BATCH or margin < MIN_CYCLE_MARGIN_BITS:
         raise AssertionError(f"cycle: {n_correct}/{BATCH} correct, margin {margin:.2f} bits")
     return {"conversion cycle": launches}
+
+
+# bench.py --intop's workloads (bench.py:536-720): (op, width); instances
+# max(1, 64 // width), so 2 * width * instances = 128 input bits
+INTOPS = (("add", 8), ("mul", 8), ("mul", 16))
+MIN_INTOP_MARGIN_BITS = 2.0
+TIMED_CALLS = {"add8": 3, "mul8": 3, "mul16": 1}
+# the TPU's record of the same runs (BENCH_SUITE.json add8, mul8, mul16): a
+# correctness reference, and its wave statistics, never a target
+TPU_INTOP = {
+    "add8": dict(correct="8/8", noise_margin_bits_worst=5.7, mean_cmux_batch=65.0,
+                 mean_cbs_batch=128.0),
+    "mul8": dict(correct="8/8", noise_margin_bits_worst=3.5, mean_cmux_batch=155.6,
+                 mean_cbs_batch=128.0),
+    "mul16": dict(correct="4/4", noise_margin_bits_worst=3.5, mean_cmux_batch=123.0,
+                  mean_cbs_batch=128.0),
+}
+
+
+def intop_graph(op: str, width: int):
+    """One FheCircuit holding every instance of bench.py's intop workload
+    (bench.py:608-641): 2 * width * n_inst L0 LWE inputs "b{r}", each
+    through CBS, then the adder or multiplier of each instance over its
+    bits (refreshed every 64 CMuxes), one OUTPUT_GLWE1 "o{j}_{wi}" an output
+    bit. Returns (graph, [(instance, bit, key)], n_inst, the mux circuit's
+    function on (a, b))."""
+    from spf_tpu_torch.circuits import integer as ic
+    from spf_tpu_torch.runtime.fhe_circuit import CtType, FheCircuit, FheEdge, FheOp
+
+    n_inst = max(1, 64 // width)
+    if op == "add":
+        circuit, fn = ic.ripple_carry_adder(width, emit_carry=True), lambda a, b: a + b
+    else:
+        circuit, fn = ic.unsigned_multiplier(width, width), lambda a, b: a * b
+    g = FheCircuit()
+    sel_all = []
+    for r in range(2 * width * n_inst):
+        nd = g.add_node(FheOp.INPUT_LWE0, f"b{r}")
+        sel_all.append(g.insert_ciphertext_conversion(nd, CtType.LWE0, CtType.GGSW1))
+    out_keys = []
+    for j in range(n_inst):
+        outs = g.insert_mux_circuit(circuit, [sel_all[i * n_inst + j] for i in range(2 * width)])
+        for wi, o in enumerate(outs):
+            on = g.add_node(FheOp.OUTPUT_GLWE1, f"o{j}_{wi}")
+            g.add_edge(o, on, FheEdge.UNARY)
+            out_keys.append((j, wi, f"o{j}_{wi}"))
+    return g, out_keys, n_inst, fn
+
+
+def intop_inputs(rng, lwe_sk: np.ndarray, lwe, width: int, n_inst: int):
+    """bench.py:566-581: operand values from seed 11, their bits
+    input-major (bit idx of every instance, a's bits then b's) encrypted
+    under L0 as bit << 63. Returns (a, b, {"b{r}": u64 [n0+1]})."""
+    from spf_tpu_torch.ops import encryption
+
+    rng2 = np.random.default_rng(11)
+    a_vals = rng2.integers(0, 1 << width, n_inst, dtype=np.uint64)
+    b_vals = rng2.integers(0, 1 << width, n_inst, dtype=np.uint64)
+    bits = [(int(a_vals[j] if idx < width else b_vals[j]) >> (idx % width)) & 1
+            for idx in range(2 * width) for j in range(n_inst)]
+    rows = encryption.encrypt_lwe_np(rng, np.array(bits, dtype=np.uint64) << np.uint64(63),
+                                     lwe_sk, lwe)
+    return a_vals, b_vals, {f"b{r}": rows[r] for r in range(rows.shape[0])}
+
+
+def intop_decode(res: dict, out_keys, glwe_sk: np.ndarray, glwe, expected):
+    """bench.py:667-690: each output GLWE's phase at coefficient 0, its bit
+    and its noise margin (bits to the 2^62 decision boundary, against the
+    expected bit). Returns (values, n_correct, margins)."""
+    from spf_tpu_torch.utils import host_crypto as hc
+
+    sums = [0] * len(expected)
+    margins = []
+    for j, wi, okey in out_keys:
+        phase = int(hc.decrypt_glwe_np(res[okey], glwe_sk, glwe)[0])
+        sums[j] |= (((phase >> 63) + ((phase >> 62) & 1)) & 1) << wi
+        err = (phase - (((expected[j] >> wi) & 1) << 63)) % (1 << 64)
+        err = min(err, (1 << 64) - err)
+        margins.append(62 - float(np.log2(max(err, 1))))
+    return sums, sum(int(s == e) for s, e in zip(sums, expected)), margins
+
+
+def cbs_launches(p) -> dict:
+    """Kernel launches of one circuit bootstrap (multi-bit rotation at
+    GROUP_CBS, the trace, the scheme switch), whatever its width."""
+    from spf_tpu_torch.ops.multibit import n_groups
+
+    ng = n_groups(p.l0_params.dim, GROUP_CBS)
+    rounds = p.l1_params.log_degree * p.cbs_radix.count
+    return dict(accumulate_decompose=ng, mad_horner_g2=ng, fence=8, fwd_ds=ng + rounds + 3,
+                inv_ds=ng + rounds)
+
+
+def schedule_launches(sched, p) -> dict:
+    """The launches a wave machine run of `sched` makes: a CBS for every
+    cbs, convert and refresh wave; a forward FFT, a batched-row MAD and an
+    inverse FFT for every CMux and external product (8 stacked CMux waves
+    for a cmux_scan; the refresh's external product of ONE)."""
+    counts = dict.fromkeys(("fwd_ds", "inv_ds", "freq_mad_batched"), 0)
+    for w in sched.waves:
+        prods = {"cmux": 1, "extprod": 1, "refresh": 1}.get(w.group, 0)
+        if w.group == "cmux_scan":
+            prods = len(w.idx["out"])
+        if w.group in ("cbs", "convert", "refresh"):
+            for name, n in cbs_launches(p).items():
+                counts[name] = counts.get(name, 0) + n
+        for name in ("fwd_ds", "inv_ds", "freq_mad_batched"):
+            counts[name] += prods
+    return expect_launches(**counts)
+
+
+def phase_small_wave_machine():
+    """The wave machine and the per-wave executor on the card and on the
+    CPU at a small size (DEFAULT_128's radices, N = 256, n0 = 8): a u2 add
+    and a NOT through fluent graphs, bit-identical outputs on both devices
+    and both executors, decrypting right."""
+    from spf_tpu_torch.ops import encryption
+    from spf_tpu_torch.runtime.executor_u32 import U32CircuitExecutor, U32ComputeKey
+    from spf_tpu_torch.runtime.fhe_circuit import FheEdge, FheOp
+    from spf_tpu_torch.runtime.fluent import FheCircuitCtx, UInt
+    from spf_tpu_torch.runtime.wave_machine import WaveMachine
+    from spf_tpu_torch.utils import host_crypto as hc
+
+    p = small_cycle_params()
+    glwe = p.l1_params
+    rng = np.random.default_rng(SEED + 5)
+    lwe_sk = rng.integers(0, 2, p.l0_params.dim).astype(np.int64)
+    glwe_sk, *keys = cycle_keys(p, lwe_sk, torch.Generator().manual_seed(SEED + 5))
+    g01 = encryption.encrypt_ggsw_scalar(torch.tensor([0, 1]), glwe_sk, glwe, p.cbs_radix,
+                                         torch.Generator().manual_seed(SEED + 6))
+    sk = glwe_sk.numpy().astype(np.uint64)
+    ctx = FheCircuitCtx()
+    a, b = UInt.input(ctx, 2), UInt.input(ctx, 2)
+    out_keys = (a + b).output()
+    nt = ctx.circuit.add_node(FheOp.NOT)
+    ctx.circuit.add_edge(a.bits[0], nt, FheEdge.UNARY)
+    o = ctx.circuit.add_node(FheOp.OUTPUT_GLWE1, "not_a0")
+    ctx.circuit.add_edge(nt, o, FheEdge.UNARY)
+    a_val, b_val = 3, 2
+    cts = hc.encrypt_uint_bits_np(rng, a_val, 2, sk, glwe) + hc.encrypt_uint_bits_np(rng, b_val, 2, sk, glwe)
+    inputs = dict(zip(a.input_keys() + b.input_keys(), cts))
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        key = U32ComputeKey.from_coeff(*keys, g01[0], g01[1], device=dev)
+        outs[f"wave_machine {dev}"] = WaveMachine(key, p).run(ctx.circuit, inputs)
+        outs[f"per-wave {dev}"] = U32CircuitExecutor(key, p).run(ctx.circuit, inputs)
+    ref = outs["wave_machine cpu"]
+    exact = {name: all(np.array_equal(o[k], ref[k]) for k in ref) for name, o in outs.items()}
+    got = hc.decrypt_uint_bits_np([ref[k] for k in out_keys], sk, glwe)
+    not_a0 = hc.decrypt_glwe_bit_np(ref["not_a0"], sk, glwe)
+    res = emit(dict(phase="small_wave_machine", n=glwe.degree, n0=p.l0_params.dim,
+                    bitexact_vs_wave_machine_cpu=exact, sum=got, want=(a_val + b_val) % 4,
+                    not_a0=not_a0))
+    if not all(exact.values()) or got != (a_val + b_val) % 4 or not_a0 != 1 - (a_val & 1):
+        raise AssertionError(f"small wave machine: {res}")
+
+
+def phase_intop():
+    """Path 6: bench.py --intop's add8, mul8 and mul16 at DEFAULT_128 through
+    the port's WaveMachine (bench.py:536-720): the cycle's keys on the card
+    (multi-bit bsk at g = 2, radix 4x8; ak, ssk, ksk; refresh every 64
+    CMuxes), 128 L0 bits encrypted on the host, one FheCircuit holding
+    every instance; a first call with the launch counts read around it and
+    held against the schedule's, decryption (every instance right, worst
+    margin >= 2 bits, beside the TPU's), wave statistics beside the TPU's,
+    add8 also through the per-wave U32CircuitExecutor (the same
+    decryption), then the median latency of TIMED_CALLS calls and one
+    profiled call."""
+    from spf_tpu_torch.runtime.executor_u32 import U32CircuitExecutor, U32ComputeKey
+    from spf_tpu_torch.runtime.wave_machine import WaveMachine
+    from spf_tpu_torch.params import DEFAULT_128
+
+    p = DEFAULT_128
+    lwe, glwe = p.l0_params, p.l1_params
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    rng = np.random.default_rng(20240817)
+    lwe_sk = rng.integers(0, 2, lwe.dim).astype(np.int64)
+    t0 = time.perf_counter()
+    glwe_sk, bsk, ak, ssk, ksk = cycle_keys(p, lwe_sk, gen)
+    torch.cuda.synchronize()
+    keygen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    key = U32ComputeKey.from_coeff(bsk, ak, ssk, ksk)
+    torch.cuda.synchronize()
+    convert_s = time.perf_counter() - t0
+    del bsk, ak, ssk, ksk
+    sk = glwe_sk.cpu().numpy().astype(np.uint64)
+    wm = WaveMachine(key, p)
+    by_path, failures = {}, []
+    for op, width in INTOPS:
+        name = f"{op}{width}"
+        t0 = time.perf_counter()
+        g, out_keys, n_inst, fn = intop_graph(op, width)
+        sched = wm.schedule(g)
+        build_s = time.perf_counter() - t0
+        a_vals, b_vals, inputs = intop_inputs(rng, lwe_sk, lwe, width, n_inst)
+        expected = [fn(int(x), int(y)) for x, y in zip(a_vals, b_vals)]
+        wm.wave_log.clear()
+        res, first_s, launches, peak_gib = drive(lambda: wm.run(g, inputs),
+                                                 schedule_launches(sched, p), f"path 6 ({name})")
+        stats = wm.wave_stats()
+        values, n_ok, margins = intop_decode(res, out_keys, sk, glwe, expected)
+        row = dict(
+            phase="intop", path="wave machine", workload=name, params="DEFAULT_128",
+            group=GROUP_CBS, cbs_pbs_radix="4x8", batch=n_inst, input_bits=len(inputs),
+            schedule_s=build_s, slot_counts=sched.slot_counts, keygen_s=keygen_s,
+            key_conversion_s=convert_s, first_call_s=first_s, correct=f"{n_ok}/{n_inst}",
+            noise_margin_bits_worst=min(margins),
+            noise_margin_bits_median=float(np.median(margins)), tpu=TPU_INTOP[name],
+            wave_stats=stats, mean_cmux_batch=stats.get("cmux", {}).get("mean_batch"),
+            mean_cbs_batch=stats.get("cbs", {}).get("mean_batch"),
+            launches={k: v for k, v in launches.items() if v}, peak_device_mem_gib=peak_gib)
+        if name == "add8":
+            per_wave = U32CircuitExecutor(key, p).run(g, inputs)
+            pw_values, pw_ok, _ = intop_decode(per_wave, out_keys, sk, glwe, expected)
+            row["per_wave_executor"] = dict(correct=f"{pw_ok}/{n_inst}",
+                                            same_values=pw_values == values)
+            if pw_values != values:
+                failures.append(f"add8: the per-wave executor decrypts {pw_values}, the wave "
+                                f"machine {values}")
+        times, device_call_ms, by_kernel, glue, port_us = wall_and_device(
+            lambda: wm.run(g, inputs), TIMED_CALLS[name])
+        med = statistics.median(times)
+        row.update(
+            latency_s=med, call_s=times, device_ms_per_call=device_call_ms,
+            device_busy_share=device_call_ms / 1e3 / med, device_ms_by_kernel=by_kernel,
+            glue=glue, port_kernel_us_per_launch=port_us,
+            bench_line=dict(metric=f"encrypted_u{width}_{op}s_per_sec_per_chip",
+                            value=n_inst / med, unit=f"u{width} {op}s/s", batch=n_inst,
+                            latency_s=med, backend="spf_tpu_torch", platform="gpu",
+                            correct=f"{n_ok}/{n_inst}", executor="wave_machine",
+                            mean_cmux_batch=row["mean_cmux_batch"],
+                            mean_cbs_batch=row["mean_cbs_batch"],
+                            noise_margin_bits_worst=min(margins),
+                            noise_margin_bits_median=float(np.median(margins))))
+        emit(row)
+        by_path[f"intop {name}"] = launches
+        if n_ok != n_inst or min(margins) < MIN_INTOP_MARGIN_BITS:
+            failures.append(f"{name}: {n_ok}/{n_inst} correct, worst margin {min(margins):.2f} bits")
+    if failures:
+        raise AssertionError(f"path 6 (intop): {failures}")
+    return by_path
 
 
 def cycle_breakdown(cycle, ct) -> dict:
@@ -1180,6 +1511,8 @@ def main() -> int:
     by_path.update(timed("main_path", phase_main_path))
     by_path.update(timed("single_bit_pbs", phase_single_bit))
     by_path.update(timed("conversion_cycle", phase_cycle))
+    timed("small_wave_machine", phase_small_wave_machine)
+    by_path.update(timed("intop", phase_intop))
     probes, opaque_launches = timed("probes", phase_probes)
     by_path.update(probes)
     for r in results:

@@ -58,6 +58,25 @@
 // the instruction cache, which cost 12% on an H100; at g <= 2 the unrolled
 // form is the faster one.
 
+//
+// spf_freq_mad_batched, below, is the g = 0 MAD under a batched row: batch
+// column b reads its own GGSW row, the one at slot slots[b] of a GGSW
+// buffer, in place (the rows circuit bootstrapping makes, one a column, or
+// the wave machine's GGSW slot buffer). It computes what freq_mad_plain
+// computes for a 5-dimensional row (XLA glue on the TPU:
+// spf_tpu/ops/bootstrap_u32.py:161-178), in the same i-then-j order of
+// cadd(acc, cmul(d, g)), bit for bit. Bound: device memory. At the wave
+// machine's widest CMux wave (l = 4, k+1 = 2, K = 1024, B = 256) its
+// distinct rows are up to 2 * 4 * 2 * 1024 * 16 B = 256 KB a slot (67 MB
+// for 256 slots), the digit spectra 33.5 MB and the output 8.4 MB; its
+// 16 complex multiply-adds a (bin, column) are ~10 us of f32 issue. Design,
+// simple first: one thread a (bin, column), a warp 8 bins x 4 columns, so
+// that a warp's row loads from a slot-major buffer fill whole 32-byte
+// sectors (8 consecutive bins of 4 slots) and a block's two neighbouring
+// warps share the sectors of the spectra and outputs; the k+1 output
+// accumulators stay in registers (k+1 a template parameter: 2, 3, 4, 6).
+// Lanes that share a slot read the same row, which the L2 serves.
+
 #include "common.cuh"
 #include "ds.cuh"
 
@@ -259,7 +278,93 @@ int launch(const Planes4& d, const Planes4& r, const Planes4& lo, const Planes4&
   return spf_last_error();
 }
 
+constexpr int BATCHED_THREADS = 256;
+constexpr int BATCHED_BINS = 8;  // bins of a warp (and of a block)
+constexpr int BATCHED_COLS = BATCHED_THREADS / BATCHED_BINS;
+
+// out[o][bin, col] = sum over i (outer), j of d[j, i][bin, col] *
+// rows[slot(col), i, j, o][bin]; slot(col) = slots[col], or col without
+// slots. The row element (s, i, j, o, bin) lies at
+// s * s_slot + ((i * l + j) * KP1 + o) * s_ijo + bin * s_bin.
+template <int KP1>
+__global__ void __launch_bounds__(BATCHED_THREADS)
+    mad_batched_kernel(Planes4 dfft, Planes4 rows, const int* __restrict__ slots,
+                       float* __restrict__ orh, float* __restrict__ orl, float* __restrict__ oih,
+                       float* __restrict__ oil, int l, int k, int b, int nslots, long long s_slot,
+                       long long s_ijo, long long s_bin) {
+  const int bin = blockIdx.y * BATCHED_BINS + (threadIdx.x % BATCHED_BINS);
+  const int col = blockIdx.x * BATCHED_COLS + (threadIdx.x / BATCHED_BINS);
+  if (bin >= k || col >= b) return;
+  const size_t plane = (size_t)k * b;
+  const size_t idx = (size_t)bin * b + col;
+  const int s = slots == nullptr ? col : __ldg(slots + col);
+  if (s < 0 || s >= nslots) {  // an index outside the buffer: NaN, never a stray read
+    for (int o = 0; o < KP1; ++o) {
+      const size_t out = (size_t)o * plane + idx;
+      orh[out] = orl[out] = oih[out] = oil[out] = __int_as_float(0x7fc00000);
+    }
+    return;
+  }
+  const size_t base = (size_t)s * s_slot + (size_t)bin * s_bin;
+  dsc acc[KP1];
+#pragma unroll
+  for (int o = 0; o < KP1; ++o) acc[o] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 1
+  for (int i = 0; i < KP1; ++i) {
+#pragma unroll 1
+    for (int j = 0; j < l; ++j) {
+      const dsc d = dfft.load((size_t)(j * KP1 + i) * plane + idx);
+      const size_t at = base + (size_t)((i * l + j) * KP1) * s_ijo;
+#pragma unroll
+      for (int o = 0; o < KP1; ++o) acc[o] = cadd(acc[o], cmul(d, rows.load(at + o * s_ijo)));
+    }
+  }
+#pragma unroll
+  for (int o = 0; o < KP1; ++o) {
+    const size_t out = (size_t)o * plane + idx;
+    orh[out] = acc[o].rh;
+    orl[out] = acc[o].rl;
+    oih[out] = acc[o].ih;
+    oil[out] = acc[o].il;
+  }
+}
+
+template <int KP1>
+int launch_batched(const Planes4& d, const Planes4& r, const int* slots, float* o0, float* o1,
+                   float* o2, float* o3, int l, int k, int b, int nslots, long long s_slot,
+                   long long s_ijo, long long s_bin, cudaStream_t stream) {
+  const dim3 grid((b + BATCHED_COLS - 1) / BATCHED_COLS, (k + BATCHED_BINS - 1) / BATCHED_BINS);
+  if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  mad_batched_kernel<KP1><<<grid, BATCHED_THREADS, 0, stream>>>(
+      d, r, slots, o0, o1, o2, o3, l, k, b, nslots, s_slot, s_ijo, s_bin);
+  return spf_last_error();
+}
+
 }  // namespace
+
+// dfft 4 x [l, k+1, K, B]; rows 4 x a GGSW buffer of nslots GGSWs, element
+// (s, i, j, o, bin) at s * s_slot + ((i * l + j) * (k+1) + o) * s_ijo +
+// bin * s_bin (a slot buffer [S, k+1, l, k+1, K] or a batched row
+// [k+1, l, k+1, K, S]); slots int32 [B], or null for slot b = column b
+// -> out 4 x [k+1, K, B]. A slot outside [0, nslots) gives NaN outputs.
+extern "C" int spf_freq_mad_batched(const float* d0, const float* d1, const float* d2,
+                                    const float* d3, const float* r0, const float* r1,
+                                    const float* r2, const float* r3, const int* slots, float* o0,
+                                    float* o1, float* o2, float* o3, int kp1, int l, int k, int b,
+                                    int nslots, long long s_slot, long long s_ijo,
+                                    long long s_bin, void* stream) {
+  if (l < 1 || k < 1 || b < 1 || nslots < 1 || (long long)k * b >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Planes4 d{d0, d1, d2, d3}, r{r0, r1, r2, r3};
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (kp1) {
+    case 2: return launch_batched<2>(d, r, slots, o0, o1, o2, o3, l, k, b, nslots, s_slot, s_ijo, s_bin, s);
+    case 3: return launch_batched<3>(d, r, slots, o0, o1, o2, o3, l, k, b, nslots, s_slot, s_ijo, s_bin, s);
+    case 4: return launch_batched<4>(d, r, slots, o0, o1, o2, o3, l, k, b, nslots, s_slot, s_ijo, s_bin, s);
+    case 6: return launch_batched<6>(d, r, slots, o0, o1, o2, o3, l, k, b, nslots, s_slot, s_ijo, s_bin, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
 
 // dfft 4 x [l, k+1, K, B]; row 4 x [2^g-1, k+1, l, k+1, K]; the step's
 // phase factor halves lo 4 x [g, Klo, B] and hi 4 x [g, K / Klo, B]

@@ -7,7 +7,10 @@ rotation inside circuit bootstrapping), g = 1 (the single-bit phase_rot
 step), each forming its step's (phase - 1) factors from their halves, and
 g = 0 (`freq_mad`, one key row with no phase). Those four are its k+1 = 2
 instances; every other k+1 runs its per-plane instance of the same g,
-counted as `mad_any_kp1_g<g>`."""
+counted as `mad_any_kp1_g<g>`. Its second entry point, `freq_mad_batched`,
+is the g = 0 MAD under a batched row: each batch column reads its own
+GGSW row from a buffer of GGSWs (the CMux of the conversion cycle and of
+the circuit executors)."""
 
 from .build import Kernel
 
@@ -25,6 +28,7 @@ MAD_HORNER_G1 = Kernel("mad", "spf_mad_horner", _MAD_ARGS)
 FREQ_MAD = Kernel("mad", "spf_mad_horner", _MAD_ARGS)
 MAD_BY_GROUP = {0: FREQ_MAD, 1: MAD_HORNER_G1, 2: MAD_HORNER_G2, 3: MAD_HORNER}
 MAD_ANY_KP1_BY_GROUP = {g: Kernel("mad", "spf_mad_horner", _MAD_ARGS) for g in range(4)}
+FREQ_MAD_BATCHED = Kernel("mad", "spf_freq_mad_batched", "p" * 13 + "iiiii" + "qqq" + "p")
 FENCE = Kernel("fence", "spf_fence", "ppip")
 PHASE_MINUS_ONE = Kernel("phase", "spf_phase_minus_one", "p" * 10 + "iip")
 # the probes of spf_tpu_torch.scripts.vpu_probe
@@ -44,6 +48,7 @@ ALL = {
     "mad_horner_g1": MAD_HORNER_G1,
     "freq_mad": FREQ_MAD,
     **{f"mad_any_kp1_g{g}": k for g, k in MAD_ANY_KP1_BY_GROUP.items()},
+    "freq_mad_batched": FREQ_MAD_BATCHED,
     "fence": FENCE,
     "phase_minus_one": PHASE_MINUS_ONE,
     "chain": CHAIN,

@@ -114,13 +114,16 @@ def library(name: str) -> ctypes.CDLL:
 
 class Kernel:
     """One C entry point of a kernel library. Arguments are ints: a
-    tensor's `data_ptr()` or the stream for each `ptr`, else a C int.
-    `launches` counts the successful launches."""
+    tensor's `data_ptr()` (or None for a null pointer) or the stream for
+    each "p" of `argspec`, a C int for each "i", a C long long for each
+    "q". `launches` counts the successful launches."""
+
+    _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "q": ctypes.c_longlong}
 
     def __init__(self, lib: str, symbol: str, argspec: str):
         self.lib = lib
         self.symbol = symbol
-        self.argtypes = [ctypes.c_void_p if a == "p" else ctypes.c_int for a in argspec]
+        self.argtypes = [self._CTYPES[a] for a in argspec]
         self.launches = 0
         self._fn = None
 

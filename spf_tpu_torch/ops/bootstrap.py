@@ -28,7 +28,7 @@ from torch import nn
 
 from ..params import GlweDef, RadixDecomposition
 from . import fft, torus
-from .mad import freq_mad, freq_mad_plain, mad_horner
+from .mad import freq_mad, freq_mad_batched, mad_horner
 from .phase_rot import fence, phase_factors_all
 from .rot_decomp import accumulate_decompose, rotate_sub_decompose, rotate_sub_decompose_acc
 
@@ -63,20 +63,27 @@ def bsk_to_freq(coeff: torch.Tensor):
     return tuple(c.t().contiguous().reshape(*shp[:-1], n // 2) for c in f)
 
 
-def external_product(glwe_t: torch.Tensor, ggsw_row, radix: RadixDecomposition):
-    """GLWE int64 [k+1, N, B] ⊡ a GGSW row (key row [k+1, l, k+1, K], or
-    batched [k+1, l, k+1, K, B]) -> spectrum [k+1, K, B]. A key row goes
-    through the `freq_mad` kernel; a batched row (one CMux per batch after
-    circuit bootstrapping) is the plain MAD on any device, as it is XLA on
-    the TPU."""
+def external_product(glwe_t: torch.Tensor, ggsw_row, radix: RadixDecomposition, slots=None,
+                     slot_axis: int = -1):
+    """GLWE int64 [k+1, N, B] ⊡ a GGSW row -> spectrum [k+1, K, B]. A key
+    row [k+1, l, k+1, K] goes through `freq_mad`. Otherwise `ggsw_row`
+    holds a GGSW for each of S slots along `slot_axis` (a batched row
+    [k+1, l, k+1, K, S] as circuit bootstrapping makes them, or a slot
+    buffer [S, k+1, l, k+1, K] with slot_axis 0) and batch column b takes
+    the one at slots[b] (b for slots None): `freq_mad_batched`, which
+    reads them in place."""
     dfft = fwd_signed(torus.decompose(glwe_t, radix))
-    mad = freq_mad_plain if ggsw_row[0].dim() == 5 else freq_mad
-    return mad(dfft, ggsw_row)
+    if ggsw_row[0].dim() == 4:
+        return freq_mad(dfft, ggsw_row)
+    return freq_mad_batched(dfft, ggsw_row, slots, slot_axis)
 
 
-def cmux(d0: torch.Tensor, d1: torch.Tensor, ggsw_row, radix: RadixDecomposition):
-    """d0 + GGSW ⊡ (d1 − d0): d1 where the GGSW encrypts 1, else d0."""
-    return torus.add(d0, inv_limb(external_product(torus.sub(d1, d0), ggsw_row, radix)))
+def cmux(d0: torch.Tensor, d1: torch.Tensor, ggsw_row, radix: RadixDecomposition, slots=None,
+         slot_axis: int = -1):
+    """d0 + GGSW ⊡ (d1 − d0): d1 where the GGSW encrypts 1, else d0
+    (`external_product` says which GGSW each column takes)."""
+    return torus.add(d0, inv_limb(external_product(torus.sub(d1, d0), ggsw_row, radix, slots,
+                                                   slot_axis)))
 
 
 def blind_rotate(lut, ct_switched, bsk_freq, glwe: GlweDef, radix: RadixDecomposition,

@@ -18,9 +18,10 @@ same stacked tables. `ConversionCycle` is the cycle that
 under the GGSW, sample extraction and the L1 -> L0 LWE keyswitch.
 
 Kernels on this path: the blind rotation's (multi-bit at the key's
-group size: `accumulate_decompose`, `mad_horner`, the FFTs, `fence`)
-and the forward and inverse FFTs of every keyswitch, the scheme switch
-and the CMux. The keyswitch, scheme-switch and CMux MADs are plain
+group size: `accumulate_decompose`, `mad_horner`, the FFTs, `fence`),
+the forward and inverse FFTs of every keyswitch, the scheme switch and
+the CMux, and the CMux's MAD under the batched row of the CBS output
+(`freq_mad_batched`). The keyswitch and scheme-switch MADs are plain
 PyTorch, as they are XLA glue on the TPU.
 """
 
@@ -250,7 +251,8 @@ class ConversionCycle(nn.Module):
         self.register_buffer("ksk_planes", ksk_to_byte_planes(ksk.to(device)))
 
     def select(self, ggsw) -> torch.Tensor:
-        """CMux of (0, q/2 in every coefficient of b) under the GGSWs,
+        """CMux of (0, q/2 in every coefficient of b) under the GGSWs
+        (column b under GGSW b, read in place by `freq_mad_batched`),
         then sample extraction: L1 LWE int64 [k*N+1, B]."""
         p = self.params
         glwe = p.l1_params

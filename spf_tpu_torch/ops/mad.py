@@ -24,6 +24,14 @@ half of the single-bit plain and fuse_rot steps. k + 1 = 2 has its own
 instances (`kernels.MAD_BY_GROUP`); the other k + 1 of `MAD_KP1` run an
 instance that computes one output plane a block
 (`kernels.MAD_ANY_KP1_BY_GROUP`), with the same bits.
+
+`freq_mad_batched` is `freq_mad` under a batched row: each batch column
+reads its own GGSW row from a buffer of GGSWs, in place (one GGSW a
+column as circuit bootstrapping makes them, or the wave machine's slot
+buffer, where columns pick their slots). The TPU computes it as XLA glue
+(`bootstrap_u32.freq_mad` with a 5-dimensional row); here it is the
+kernel `mad_batched_kernel` of `csrc/mad.cu`, bit for bit with
+`freq_mad_plain` on the gathered row.
 """
 
 from __future__ import annotations
@@ -157,3 +165,61 @@ def freq_mad(dfft, ggsw_row):
     on CPU tensors."""
     return dispatch("freq_mad", dfft[0], lambda d, r: _mad_cuda(d, r, None, 0),
                     freq_mad_plain, dfft, ggsw_row)
+
+
+def _gathered_rows(rows, slots, slot_axis: int):
+    """The row of each batch column, [k+1, l, k+1, K, B]: the GGSWs of
+    `rows` at `slots` along `slot_axis` (0 or -1; all of them, in order,
+    for slots None)."""
+    if slots is not None:
+        rows = tuple(c.index_select(slot_axis, slots) for c in rows)
+    return rows if slot_axis == -1 else tuple(c.movedim(0, -1) for c in rows)
+
+
+def freq_mad_batched_plain(dfft, rows, slots=None, slot_axis: int = -1):
+    """The plain version: `freq_mad_plain` on the gathered rows."""
+    return freq_mad_plain(dfft, _gathered_rows(rows, slots, slot_axis))
+
+
+def _mad_batched_cuda(dfft, rows, slots, slot_axis):
+    l, kp1, k_, b = dfft[0].shape
+    if kp1 not in MAD_KP1 or slot_axis not in (0, -1) or rows[0].dim() != 5:
+        raise ValueError(f"freq_mad_batched: k+1 = {kp1}, slot axis {slot_axis}, "
+                         f"rows {tuple(rows[0].shape)}")
+    shape = tuple(rows[0].shape)
+    nslots = shape[slot_axis]
+    ggsw = shape[1:] if slot_axis == 0 else shape[:-1]
+    if ggsw != (kp1, l, kp1, k_) or any(tuple(c.shape) != shape for c in rows):
+        raise ValueError(f"freq_mad_batched: rows {shape} for digit spectra {tuple(dfft[0].shape)}")
+    dfft = [c.contiguous() for c in dfft]
+    check_cuda("freq_mad_batched", *dfft, *rows)
+    if slots is None:
+        if nslots != b:
+            raise ValueError(f"freq_mad_batched: {nslots} rows for {b} columns")
+        slot_ptr = None
+    else:
+        check_cuda("freq_mad_batched", slots, dtype=torch.int32)
+        if slots.device != dfft[0].device or tuple(slots.shape) != (b,):
+            raise ValueError(f"freq_mad_batched: slots {tuple(slots.shape)} on {slots.device} "
+                             f"for {b} columns on {dfft[0].device}")
+        slot_ptr = slots.data_ptr()
+    # strides of a slot and of a (i, j, o) step and a bin, contiguous planes
+    s_slot, s_ijo, s_bin = (kp1 * l * kp1 * k_, k_, 1) if slot_axis == 0 else (1, k_ * nslots, nslots)
+    out = [torch.empty((kp1, k_, b), dtype=torch.float32, device=dfft[0].device) for _ in range(4)]
+    kernels.FREQ_MAD_BATCHED(
+        *(c.data_ptr() for c in (*dfft, *rows)), slot_ptr, *(c.data_ptr() for c in out),
+        kp1, l, k_, b, nslots, s_slot, s_ijo, s_bin, stream_of(dfft[0]),
+    )
+    return tuple(out)
+
+
+def freq_mad_batched(dfft, rows, slots=None, slot_axis: int = -1):
+    """The MAD of digit spectra [l, k+1, K, B] with a GGSW row a batch
+    column: column b reads the GGSW at index slots[b] (int32 [B]; b
+    itself for slots None) along `slot_axis` of `rows`, 4 planes of a
+    batched row [k+1, l, k+1, K, S] (slot_axis -1, as circuit
+    bootstrapping makes them) or of a slot buffer [S, k+1, l, k+1, K]
+    (slot_axis 0) -> 4 planes [k+1, K, B]. The kernel reads the rows in
+    place on CUDA tensors; `freq_mad_batched_plain` on CPU tensors."""
+    return dispatch("freq_mad_batched", dfft[0], _mad_batched_cuda, freq_mad_batched_plain,
+                    dfft, rows, slots, slot_axis)

@@ -122,19 +122,21 @@ def device_ms(fn, copies: list, reps: int):
 
 def profiled_kernels(fn) -> dict:
     """{kernel name: [device ms, launches]} of one call of fn, by
-    torch.profiler."""
+    torch.profiler. The device events are read from the profiler's raw
+    results: building its parsed event tree takes minutes for a call of a
+    million launches (a mul16 circuit), the raw events seconds."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     by_name = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            name = e.name.replace("(anonymous namespace)::", "").removeprefix("void ")
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            name = e.name().replace("(anonymous namespace)::", "").removeprefix("void ")
             name = name.split("(")[0][:80]
             entry = by_name.setdefault(name, [0.0, 0])
-            entry[0] += e.device_time / 1e3
+            entry[0] += e.duration_ns() / 1e6
             entry[1] += 1
     return by_name
 
