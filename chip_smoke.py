@@ -75,7 +75,19 @@ Phases, each printing one JSON line with its seconds:
    wave statistics beside the TPU's, add8 also through the per-wave
    executor (the same values), then the median latency of 3 calls (1 for
    mul16) and one profiled call (device ms by kernel and glue, busy share);
-10. the probes, as one path with the launch counts read around it: the
+10. path 7, the encrypted Parasol CPU (`spf_tpu_torch.cpu.FheComputer`
+   over `U32HostEvaluation`, every flush run by the WaveMachine) at
+   DEFAULT_128 on path 6's keys plus GGSW(0) / GGSW(1) made on the card:
+   bench.py --program mul32 (its graph built and scheduled apart, seconds
+   each; a first call with the launch counts read around it and held
+   against its schedule's; a * b mod 2^32 from 4 encrypted return bytes,
+   every bit's margin >= 2 bits; gas 500003, one flush; wave statistics
+   equal to the JAX scheduler's; the median latency of 3 calls beside the
+   host encryption's seconds, one profiled call), then the encrypted u8
+   programs of tests/test_cpu.py (add, CmpGt + Cmux, x plaintext 3) and a
+   Dbg program that flushes twice, each with its launch counts read around
+   it and decrypting right;
+11. the probes, as one path with the launch counts read around it: the
    entry points `spf_tpu_torch.scripts.step_microbench`, `gap_probe2` and
    `vpu_probe` through their main() (their lines are printed as they
    come): exactly ITERS launches of `phase_minus_one` in each pm1
@@ -1192,20 +1204,27 @@ def intop_inputs(rng, lwe_sk: np.ndarray, lwe, width: int, n_inst: int):
     return a_vals, b_vals, {f"b{r}": rows[r] for r in range(rows.shape[0])}
 
 
-def intop_decode(res: dict, out_keys, glwe_sk: np.ndarray, glwe, expected):
-    """bench.py:667-690: each output GLWE's phase at coefficient 0, its bit
-    and its noise margin (bits to the 2^62 decision boundary, against the
-    expected bit). Returns (values, n_correct, margins)."""
+def bit_and_margin(ct: np.ndarray, glwe_sk: np.ndarray, glwe, want: int):
+    """bench.py:667-690: a GLWE bit's phase at coefficient 0, the bit it
+    decodes to and its noise margin (bits to the 2^62 decision boundary,
+    against the expected bit `want`)."""
     from spf_tpu_torch.utils import host_crypto as hc
 
+    phase = int(hc.decrypt_glwe_np(ct, glwe_sk, glwe)[0])
+    err = (phase - (want << 63)) % (1 << 64)
+    err = min(err, (1 << 64) - err)
+    return ((phase >> 63) + ((phase >> 62) & 1)) & 1, 62 - float(np.log2(max(err, 1)))
+
+
+def intop_decode(res: dict, out_keys, glwe_sk: np.ndarray, glwe, expected):
+    """Each output bit of every instance and its noise margin. Returns
+    (values, n_correct, margins)."""
     sums = [0] * len(expected)
     margins = []
     for j, wi, okey in out_keys:
-        phase = int(hc.decrypt_glwe_np(res[okey], glwe_sk, glwe)[0])
-        sums[j] |= (((phase >> 63) + ((phase >> 62) & 1)) & 1) << wi
-        err = (phase - (((expected[j] >> wi) & 1) << 63)) % (1 << 64)
-        err = min(err, (1 << 64) - err)
-        margins.append(62 - float(np.log2(max(err, 1))))
+        bit, margin = bit_and_margin(res[okey], glwe_sk, glwe, (expected[j] >> wi) & 1)
+        sums[j] |= bit << wi
+        margins.append(margin)
     return sums, sum(int(s == e) for s, e in zip(sums, expected)), margins
 
 
@@ -1220,13 +1239,13 @@ def cbs_launches(p) -> dict:
                 inv_ds=ng + rounds)
 
 
-def schedule_launches(sched, p) -> dict:
-    """The launches a wave machine run of `sched` makes: a CBS for every
+def schedule_launches(p, *scheds) -> dict:
+    """The launches wave machine runs of `scheds` make: a CBS for every
     cbs, convert and refresh wave; a forward FFT, a batched-row MAD and an
     inverse FFT for every CMux and external product (8 stacked CMux waves
     for a cmux_scan; the refresh's external product of ONE)."""
     counts = dict.fromkeys(("fwd_ds", "inv_ds", "freq_mad_batched"), 0)
-    for w in sched.waves:
+    for w in (w for sched in scheds for w in sched.waves):
         prods = {"cmux": 1, "extprod": 1, "refresh": 1}.get(w.group, 0)
         if w.group == "cmux_scan":
             prods = len(w.idx["out"])
@@ -1284,26 +1303,28 @@ def phase_small_wave_machine():
         raise AssertionError(f"small wave machine: {res}")
 
 
-def phase_intop():
-    """Path 6: bench.py --intop's add8, mul8 and mul16 at DEFAULT_128 through
-    the port's WaveMachine (bench.py:536-720): the cycle's keys on the card
-    (multi-bit bsk at g = 2, radix 4x8; ak, ssk, ksk; refresh every 64
-    CMuxes), 128 L0 bits encrypted on the host, one FheCircuit holding
-    every instance; a first call with the launch counts read around it and
-    held against the schedule's, decryption (every instance right, worst
-    margin >= 2 bits, beside the TPU's), wave statistics beside the TPU's,
-    add8 also through the per-wave U32CircuitExecutor (the same
-    decryption), then the median latency of TIMED_CALLS calls and one
-    profiled call."""
-    from spf_tpu_torch.runtime.executor_u32 import U32CircuitExecutor, U32ComputeKey
-    from spf_tpu_torch.runtime.wave_machine import WaveMachine
+@dataclasses.dataclass
+class WaveKeys:
+    """The keys of paths 6 and 7, made once on the card: the cycle's
+    (multi-bit bsk at g = 2, radix 4x8; ak, ssk, ksk) at DEFAULT_128."""
+
+    key: object  # U32ComputeKey
+    glwe_sk: torch.Tensor
+    lwe_sk: np.ndarray
+    rng: np.random.Generator
+    gen: torch.Generator
+    keygen_s: float
+    convert_s: float
+
+
+def wave_keys() -> WaveKeys:
     from spf_tpu_torch.params import DEFAULT_128
+    from spf_tpu_torch.runtime.executor_u32 import U32ComputeKey
 
     p = DEFAULT_128
-    lwe, glwe = p.l0_params, p.l1_params
     gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
     rng = np.random.default_rng(20240817)
-    lwe_sk = rng.integers(0, 2, lwe.dim).astype(np.int64)
+    lwe_sk = rng.integers(0, 2, p.l0_params.dim).astype(np.int64)
     t0 = time.perf_counter()
     glwe_sk, bsk, ak, ssk, ksk = cycle_keys(p, lwe_sk, gen)
     torch.cuda.synchronize()
@@ -1311,9 +1332,28 @@ def phase_intop():
     t0 = time.perf_counter()
     key = U32ComputeKey.from_coeff(bsk, ak, ssk, ksk)
     torch.cuda.synchronize()
-    convert_s = time.perf_counter() - t0
-    del bsk, ak, ssk, ksk
-    sk = glwe_sk.cpu().numpy().astype(np.uint64)
+    return WaveKeys(key, glwe_sk, lwe_sk, rng, gen, keygen_s, time.perf_counter() - t0)
+
+
+def phase_intop(keys: WaveKeys):
+    """Path 6: bench.py --intop's add8, mul8 and mul16 at DEFAULT_128 through
+    the port's WaveMachine (bench.py:536-720): the cycle's keys on the card
+    (refresh every 64 CMuxes), 128 L0 bits encrypted on the host, one
+    FheCircuit holding every instance; a first call with the launch counts
+    read around it and held against the schedule's, decryption (every
+    instance right, worst margin >= 2 bits, beside the TPU's), wave
+    statistics beside the TPU's, add8 also through the per-wave
+    U32CircuitExecutor (the same decryption), then the median latency of
+    TIMED_CALLS calls and one profiled call."""
+    from spf_tpu_torch.runtime.executor_u32 import U32CircuitExecutor
+    from spf_tpu_torch.runtime.wave_machine import WaveMachine
+    from spf_tpu_torch.params import DEFAULT_128
+
+    p = DEFAULT_128
+    lwe, glwe = p.l0_params, p.l1_params
+    key, lwe_sk, rng = keys.key, keys.lwe_sk, keys.rng
+    keygen_s, convert_s = keys.keygen_s, keys.convert_s
+    sk = keys.glwe_sk.cpu().numpy().astype(np.uint64)
     wm = WaveMachine(key, p)
     by_path, failures = {}, []
     for op, width in INTOPS:
@@ -1326,7 +1366,7 @@ def phase_intop():
         expected = [fn(int(x), int(y)) for x, y in zip(a_vals, b_vals)]
         wm.wave_log.clear()
         res, first_s, launches, peak_gib = drive(lambda: wm.run(g, inputs),
-                                                 schedule_launches(sched, p), f"path 6 ({name})")
+                                                 schedule_launches(p, sched), f"path 6 ({name})")
         stats = wm.wave_stats()
         values, n_ok, margins = intop_decode(res, out_keys, sk, glwe, expected)
         row = dict(
@@ -1368,6 +1408,213 @@ def phase_intop():
             failures.append(f"{name}: {n_ok}/{n_inst} correct, worst margin {min(margins):.2f} bits")
     if failures:
         raise AssertionError(f"path 6 (intop): {failures}")
+    return by_path
+
+
+# bench.py --program mul32 (bench.py:1245-1280): five instructions (load,
+# load, Mul, store, ret) on two encrypted u32 arguments, host-encrypted
+# from bench's seed
+MUL32 = (51977, 40961)
+MUL32_SEED = 20260818
+MUL32_TIMED_CALLS = 3
+MIN_PROGRAM_MARGIN_BITS = 2.0
+# the JAX scheduler's statistics of the JAX FheComputer's mul32 graph
+# (tests/test_torch_cpu.py holds them, and the port's, equal)
+MUL32_WAVE_STATS = {
+    "convert": {"waves": 5, "gates": 128, "mean_batch": 25.6, "max_batch": 64},
+    "cmux": {"waves": 721, "gates": 44860, "mean_batch": 62.2, "max_batch": 222},
+    "refresh": {"waves": 19, "gates": 1145, "mean_batch": 60.3, "max_batch": 222},
+}
+# the TPU's record of the same program (BENCH_SUITE.json mul32; its wave
+# statistics summed over 3 runs of an older scheduler): a correctness
+# reference, never a target
+TPU_MUL32 = dict(correct=True, got=2129029897, latency_s=8.928, mean_cmux_batch=48.7)
+
+
+def cpu_programs():
+    """The encrypted programs of tests/test_cpu.py that path 7 runs after
+    mul32, and one whose Dbg handler flushes mid-program: (name, program
+    builder over Asm, argument values (u8, encrypted), the value it returns,
+    the value the Dbg handler sees or None, flushes)."""
+    from spf_tpu_torch.cpu.isa import RP, SP
+
+    def load2(a):
+        return a.load(1, SP, 8, offset=0).load(2, SP, 8, offset=1)
+
+    return [
+        ("add_u8", lambda a: load2(a).add(3, 1, 2).store(RP, 3, 8).ret(), (42, 54), 96, None, 1),
+        ("max_cmpgt_cmux", lambda a: load2(a).cmp_gt(3, 1, 2).cmux(4, 3, 1, 2).store(RP, 4, 8)
+         .ret(), (57, 201), 201, None, 1),
+        ("mul_by_plain_3", lambda a: a.load(1, SP, 8, offset=0).loadi(2, 3, 8).mul(3, 1, 2)
+         .store(RP, 3, 8).ret(), (21,), 63, None, 1),
+        ("dbg_two_flushes", lambda a: load2(a).add(3, 1, 2).dbg(3, 7).xor(4, 3, 1)
+         .store(RP, 4, 8).ret(), (42, 54), 96 ^ 42, 96, 2),
+    ]
+
+
+class GraphRecorder:
+    """A circuit executor that keeps each flush's circuit and answers with
+    zero GLWE arrays: the graphs a program builds (their structure does not
+    depend on the values), with the time to build them, and no crypto."""
+
+    def __init__(self, glwe):
+        self.shape = (glwe.size + 1, glwe.degree)
+        self.circuits = []
+
+    def run(self, circuit, inputs):
+        self.circuits.append(circuit)
+        return {n.param: np.zeros(self.shape, np.uint64) for n in circuit.nodes
+                if n.op.name == "OUTPUT_GLWE1"}
+
+
+def phase_cpu(keys: WaveKeys):
+    """Path 7: the encrypted Parasol CPU (`spf_tpu_torch.cpu.FheComputer`)
+    on the port's WaveMachine at DEFAULT_128, through the entry points a
+    user calls: `FheComputer(U32HostEvaluation(p), executor=WaveMachine(key,
+    p))`, with path 6's keys plus GGSW encryptions of 0 and 1 at cbs_radix
+    made on the card. bench.py --program mul32 first: its graph built once
+    with a recording executor (seconds) and scheduled (seconds, launches
+    expected), a first call with the launch counts read around it, all 4
+    return bytes encrypted and decrypting to a * b mod 2^32 with every bit's
+    margin >= 2 bits, gas 500003, one flush, the wave statistics equal to
+    the JAX scheduler's; then the median latency of MUL32_TIMED_CALLS calls
+    (the graph built anew, the schedule cached, the host encryption apart)
+    and one profiled call. Then the programs of `cpu_programs()`, each with
+    its launch counts read around it, decrypting right with margins >= 2."""
+    from spf_tpu_torch.cpu import ArgsBuilder, FheComputer, Memory
+    from spf_tpu_torch.cpu.isa import RP, SP, Asm
+    from spf_tpu_torch.cpu.memory import EncByte
+    from spf_tpu_torch.ops import encryption
+    from spf_tpu_torch.ops.bootstrap import bsk_to_freq
+    from spf_tpu_torch.params import DEFAULT_128
+    from spf_tpu_torch.runtime.executor_u32 import U32HostEvaluation
+    from spf_tpu_torch.runtime.wave_machine import WaveMachine, build_schedule
+    from spf_tpu_torch.utils import host_crypto as hc
+
+    p = DEFAULT_128
+    glwe = p.l1_params
+    t0 = time.perf_counter()
+    g01 = encryption.encrypt_ggsw_scalar(torch.tensor([0, 1], device="cuda"), keys.glwe_sk, glwe,
+                                         p.cbs_radix, keys.gen)
+    key = dataclasses.replace(keys.key, ggsw_zero_freq=bsk_to_freq(g01[0]),
+                              ggsw_one_freq=bsk_to_freq(g01[1]))
+    torch.cuda.synchronize()
+    ggsw_s = time.perf_counter() - t0
+    del g01
+    sk = keys.glwe_sk.cpu().numpy().astype(np.uint64)
+    wm = WaveMachine(key, p)
+
+    def run(build, cts, ret_bytes, executor, dbg=None):
+        mem = Memory()
+        entry = mem.allocate_program(build(Asm()).instrs)
+        proc = FheComputer(U32HostEvaluation(p), executor=executor)
+        if dbg is not None:
+            proc.debug_handlers[7] = dbg
+        call = ArgsBuilder()
+        for c in cts:
+            call = call.arg_encrypted(c)
+        rp = proc.run_program(entry, mem, call.return_value(8 * ret_bytes).build())
+        return mem, rp, proc
+
+    def read(mem, rp, n, value):
+        """The return value and each bit's margin against `value`'s bit."""
+        got, margins = 0, []
+        for i in range(n):
+            byte = mem.load_byte(rp + i)
+            if not isinstance(byte, EncByte):
+                raise AssertionError(f"path 7: return byte {i} is not encrypted: {byte!r}")
+            for j, ct in enumerate(byte.bits):
+                bit, margin = bit_and_margin(ct, sk, glwe, (value >> (8 * i + j)) & 1)
+                got |= bit << (8 * i + j)
+                margins.append(margin)
+        return got, margins
+
+    def graphs(build, cts, ret_bytes, dbg=None):
+        """The circuits of the program's flushes and the seconds to build them."""
+        rec = GraphRecorder(glwe)
+        t0 = time.perf_counter()
+        run(build, cts, ret_bytes, rec, dbg)
+        return rec.circuits, time.perf_counter() - t0
+
+    def expected_launches(build, cts, ret_bytes, dbg=None):
+        circuits, graph_s = graphs(build, cts, ret_bytes, dbg)
+        t0 = time.perf_counter()
+        scheds = [build_schedule(c) for c in circuits]
+        return schedule_launches(p, *scheds), graph_s, time.perf_counter() - t0
+
+    # bench.py --program mul32
+    rng = np.random.default_rng(MUL32_SEED)
+    a_v, b_v = MUL32
+    want = (a_v * b_v) & 0xFFFFFFFF
+    t0 = time.perf_counter()
+    cts = [hc.encrypt_uint_bits_np(rng, v, 32, sk, glwe) for v in MUL32]
+    encrypt_s = time.perf_counter() - t0
+
+    def mul32_program(a):
+        return (a.load(1, SP, 32, offset=0).load(2, SP, 32, offset=4).mul(3, 1, 2)
+                .store(RP, 3, 32).ret())
+
+    launches_want, graph_s, schedule_s = expected_launches(mul32_program, cts, 4)
+    wm.wave_log.clear()
+    (mem, rp, proc), first_s, launches, peak_gib = drive(
+        lambda: run(mul32_program, cts, 4, wm), launches_want, "path 7 (cpu mul32)")
+    stats = wm.wave_stats()
+    got, margins = read(mem, rp, 4, want)
+    times, device_call_ms, by_kernel, glue, port_us = wall_and_device(
+        lambda: run(mul32_program, cts, 4, wm), MUL32_TIMED_CALLS)
+    med = statistics.median(times)
+    _, graph_again_s = graphs(mul32_program, cts, 4)
+    row = dict(
+        phase="cpu", path="encrypted CPU", program="mul32", params="DEFAULT_128",
+        group=GROUP_CBS, cbs_pbs_radix="4x8", a=a_v, b=b_v, got=got, want=want,
+        correct=got == want, noise_margin_bits_worst=min(margins),
+        noise_margin_bits_median=float(np.median(margins)), gas_used=proc.gas_used,
+        flush_count=proc.flush_count, ggsw_consts_s=ggsw_s, first_call_s=first_s,
+        wave_stats=stats, wave_stats_jax=MUL32_WAVE_STATS,
+        launches={k: v for k, v in launches.items() if v}, peak_device_mem_gib=peak_gib,
+        latency_s=med, call_s=times, device_ms_per_call=device_call_ms,
+        device_busy_share=device_call_ms / 1e3 / med, device_ms_by_kernel=by_kernel, glue=glue,
+        port_kernel_us_per_launch=port_us, tpu=TPU_MUL32)
+    emit(row)
+    # bench's run_once times the host encryption and the graph build too;
+    # the first graph build also makes the circuits that no path built before
+    emit(dict(phase="cpu", program="mul32", host_encrypt_s=encrypt_s, graph_build_s=graph_s,
+              graph_build_again_s=graph_again_s, schedule_s=schedule_s, latency_s=med,
+              latency_with_host_encrypt_s=med + encrypt_s))
+    failures = []
+    if got != want or min(margins) < MIN_PROGRAM_MARGIN_BITS:
+        failures.append(f"mul32: got {got}, want {want}, worst margin {min(margins):.2f} bits")
+    if (proc.gas_used, proc.flush_count) != (500_003, 1):
+        failures.append(f"mul32: gas {proc.gas_used}, flushes {proc.flush_count}")
+    if stats != MUL32_WAVE_STATS:
+        failures.append(f"mul32: wave statistics {stats}, the JAX scheduler's {MUL32_WAVE_STATS}")
+    by_path = {"cpu mul32": launches}
+
+    for name, build, values, value, dbg_want, flushes in cpu_programs():
+        cts = [hc.encrypt_uint_bits_np(rng, v, 8, sk, glwe) for v in values]
+        dbg_seen = []
+
+        def dbg(v):
+            dbg_seen.append(hc.decrypt_uint_bits_np(list(v.bits), sk, glwe))
+
+        dbg_fn = dbg if dbg_want is not None else None
+        want_l, _, _ = expected_launches(build, cts, 1, dbg_fn)
+        dbg_seen.clear()
+        (mem, rp, proc), first_s, launches, _ = drive(lambda: run(build, cts, 1, wm, dbg_fn),
+                                                     want_l, f"path 7 (cpu {name})")
+        got, margins = read(mem, rp, 1, value)
+        emit(dict(phase="cpu", program=name, params="DEFAULT_128", args=list(values), got=got,
+                  want=value, dbg_seen=dbg_seen, flush_count=proc.flush_count,
+                  gas_used=proc.gas_used, noise_margin_bits_worst=min(margins),
+                  noise_margin_bits_median=float(np.median(margins)), first_call_s=first_s,
+                  launches={k: v for k, v in launches.items() if v}))
+        by_path[f"cpu {name}"] = launches
+        if got != value or min(margins) < MIN_PROGRAM_MARGIN_BITS or proc.flush_count != flushes \
+                or dbg_seen != ([dbg_want] if dbg_want is not None else []):
+            failures.append(f"{name}: got {got}, want {value}, worst margin {min(margins):.2f}, "
+                            f"flushes {proc.flush_count}, Dbg saw {dbg_seen}")
+    if failures:
+        raise AssertionError(f"path 7 (encrypted CPU): {failures}")
     return by_path
 
 
@@ -1512,7 +1759,10 @@ def main() -> int:
     by_path.update(timed("single_bit_pbs", phase_single_bit))
     by_path.update(timed("conversion_cycle", phase_cycle))
     timed("small_wave_machine", phase_small_wave_machine)
-    by_path.update(timed("intop", phase_intop))
+    keys = timed("wave_keys", wave_keys)
+    by_path.update(timed("intop", lambda: phase_intop(keys)))
+    by_path.update(timed("cpu", lambda: phase_cpu(keys)))
+    del keys
     probes, opaque_launches = timed("probes", phase_probes)
     by_path.update(probes)
     for r in results:
