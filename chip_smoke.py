@@ -87,7 +87,19 @@ Phases, each printing one JSON line with its seconds:
    programs of tests/test_cpu.py (add, CmpGt + Cmux, x plaintext 3) and a
    Dbg program that flushes twice, each with its launch counts read around
    it and decrypting right;
-11. the probes, as one path with the launch counts read around it: the
+11. path 8, the u64 API (`spf_tpu_torch.runtime`: `generate_keys`,
+   `Evaluation`, `CircuitExecutor`; the c128 backend, torch.fft and
+   elementwise PyTorch, which launch none of the port's kernels) at
+   DEFAULT_128: the README quick start, keygen on the card from a seeded
+   generator, `Evaluation` (its two constant CBSs), the u8 add 42 + 54
+   built with `runtime.fluent` through `CircuitExecutor(ev).run` decrypting
+   to 96 (its launch counts read around it: every port kernel 0), then path
+   7's u8 add program through `FheComputer(ev)` with no executor (the u64
+   `CircuitExecutor`), its return decrypting to 96 via `decrypt_return`;
+   keygen and set-up seconds (the set-up also again, warm), the median
+   latency of 3 synchronised runs,
+   one profiled run (device ms, busy share), the worst output-bit margin;
+12. the probes, as one path with the launch counts read around it: the
    entry points `spf_tpu_torch.scripts.step_microbench`, `gap_probe2` and
    `vpu_probe` through their main() (their lines are printed as they
    come): exactly ITERS launches of `phase_minus_one` in each pm1
@@ -1618,6 +1630,110 @@ def phase_cpu(keys: WaveKeys):
     return by_path
 
 
+U64_SEED = 20261017
+U64_TIMED_CALLS = 3
+MIN_U64_MARGIN_BITS = 2.0
+
+
+def phase_u64_api(hw):
+    """Path 8: the README quick start through the port's u64 API at
+    DEFAULT_128 on the card, then the encrypted CPU on its default
+    executor. `generate_keys` from a seeded generator on the card,
+    `Evaluation(ck, DEFAULT_128)` (its GGSW(0) / GGSW(1) by CBS), the u8
+    add 42 + 54 of `runtime.fluent` through `CircuitExecutor(ev).run`
+    with the launch counts read around it (the c128 path launches none of
+    the port's kernels: all 0), decrypting to 96 with every output bit's
+    margin >= 2 bits; the median latency of U64_TIMED_CALLS synchronised
+    runs and one profiled run. Then path 7's add program (`cpu.isa`) through
+    `FheComputer(ev)` with no executor, its return decrypting to 96 via
+    `decrypt_return`. Raises on any failure."""
+    from spf_tpu_torch.cpu import ArgsBuilder, FheComputer, Memory
+    from spf_tpu_torch.cpu.args import decrypt_return
+    from spf_tpu_torch.cpu.isa import RP, SP, Asm
+    from spf_tpu_torch.cpu.memory import EncByte
+    from spf_tpu_torch.ops import torus
+    from spf_tpu_torch.params import DEFAULT_128
+    from spf_tpu_torch.runtime import Evaluation, generate_keys
+    from spf_tpu_torch.runtime.executor import CircuitExecutor
+    from spf_tpu_torch.runtime.fluent import FheCircuitCtx, UInt
+
+    p = DEFAULT_128
+    glwe = p.l1_params
+    a_v, b_v, want = 42, 54, 96
+    gen = torch.Generator(device="cuda").manual_seed(U64_SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sk, pk, ck = generate_keys(gen, p)
+    torch.cuda.synchronize()
+    keygen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ev = Evaluation(ck, p)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    glwe_sk = torus.to_u64_np(sk.glwe_1)
+
+    ctx = FheCircuitCtx()
+    a, b = UInt.input(ctx, 8), UInt.input(ctx, 8)
+    out_keys = (a + b).output()
+    x = ev.enc.encrypt_uint_bits(gen, a_v, 8, sk)
+    y = ev.enc.encrypt_uint_bits(gen, b_v, 8, sk)
+    inputs = dict(zip(a.input_keys() + b.input_keys(), x + y))
+    ex = CircuitExecutor(ev, debug=True)
+    outs, first_s, launches, peak_gib = drive(lambda: ex.run(ctx.circuit, inputs),
+                                              expect_launches(), "path 8 (quick start)")
+    got = ev.enc.decrypt_uint_bits([outs[k] for k in out_keys], sk)
+    margins = [bit_and_margin(torus.to_u64_np(outs[k]), glwe_sk, glwe, (want >> i) & 1)[1]
+               for i, k in enumerate(out_keys)]
+    waves = {}
+    for op, _, gates in ex.debug_log:
+        if op in ("cbs", "cmux", "keyswitch", "sample_extract"):
+            waves.setdefault(op, []).append(gates)
+    times, device_call_ms, by_kernel, glue, _ = wall_and_device(
+        lambda: ex.run(ctx.circuit, inputs), U64_TIMED_CALLS)
+    med = statistics.median(times)
+    t0 = time.perf_counter()  # the set-up again, past every first use
+    Evaluation(ck, p)
+    torch.cuda.synchronize()
+    setup_again_s = time.perf_counter() - t0
+    emit(dict(phase="u64_api", path="u64 API (README quick start)", params="DEFAULT_128",
+              backend=ev.be.name, card=hw["nvidia_smi"], a=a_v, b=b_v, got=got, want=want,
+              correct=got == want, noise_margin_bits_worst=min(margins),
+              noise_margin_bits_median=float(np.median(margins)), keygen_s=keygen_s,
+              evaluation_setup_s=setup_s, evaluation_setup_again_s=setup_again_s,
+              first_call_s=first_s, latency_s=med, call_s=times,
+              device_ms_per_call=device_call_ms, device_busy_share=device_call_ms / 1e3 / med,
+              device_launches_per_call=glue["launches"], device_ms_by_kernel=by_kernel,
+              waves={op: dict(waves=len(g), gates=sum(g)) for op, g in waves.items()},
+              port_kernel_launches={k: v for k, v in launches.items() if v},
+              peak_device_mem_gib=peak_gib))
+
+    mem = Memory()
+    entry = mem.allocate_program(Asm().load(1, SP, 8, offset=0).load(2, SP, 8, offset=1)
+                                 .add(3, 1, 2).store(RP, 3, 8).ret().instrs)
+    call = ArgsBuilder().arg_encrypted(x).arg_encrypted(y).return_value(8).build()
+    proc = FheComputer(ev)
+    rp, cpu_s, cpu_launches, _ = drive(lambda: proc.run_program(entry, mem, call),
+                                       expect_launches(), "path 8 (cpu default executor)")
+    cpu_got = decrypt_return(mem, rp, 1, ev.enc, sk)
+    byte = mem.load_byte(rp)
+    cpu_margins = [bit_and_margin(torus.to_u64_np(ct), glwe_sk, glwe, (want >> j) & 1)[1]
+                   for j, ct in enumerate(byte.bits)] if isinstance(byte, EncByte) else [-1.0]
+    emit(dict(phase="u64_api", path="encrypted CPU, default executor", program="add_u8",
+              params="DEFAULT_128", card=hw["nvidia_smi"], executor=type(proc.ex).__name__,
+              got=cpu_got, want=want, correct=cpu_got == want, flush_count=proc.flush_count,
+              noise_margin_bits_worst=min(cpu_margins), call_s=cpu_s))
+    failures = []
+    if got != want or min(margins) < MIN_U64_MARGIN_BITS:
+        failures.append(f"quick start: got {got}, want {want}, worst margin {min(margins):.2f}")
+    if not isinstance(proc.ex, CircuitExecutor) or cpu_got != want \
+            or min(cpu_margins) < MIN_U64_MARGIN_BITS:
+        failures.append(f"cpu default executor {type(proc.ex).__name__}: got {cpu_got}, "
+                        f"want {want}, worst margin {min(cpu_margins):.2f}")
+    if failures:
+        raise AssertionError(f"path 8 (u64 API): {failures}")
+    return {"u64 quick start": launches, "u64 cpu": cpu_launches}
+
+
 def cycle_breakdown(cycle, ct) -> dict:
     """Each stage of one conversion cycle run alone, on the previous
     stage's output: wall seconds of 2 synchronised calls, one profiled
@@ -1763,6 +1879,7 @@ def main() -> int:
     by_path.update(timed("intop", lambda: phase_intop(keys)))
     by_path.update(timed("cpu", lambda: phase_cpu(keys)))
     del keys
+    by_path.update(timed("u64_api", lambda: phase_u64_api(hw)))
     probes, opaque_launches = timed("probes", phase_probes)
     by_path.update(probes)
     for r in results:

@@ -9,11 +9,21 @@ first use and bound with ctypes (`kernels/build.py`).
 
 Entry points run on the card (`device="cuda"`) unless the caller asks
 for the CPU, where each kernel wrapper runs its plain PyTorch version.
+The u64 API (`runtime.generate_keys`, `Encryption`, `Evaluation`,
+`runtime.executor.CircuitExecutor`, over `ops/u64/`) computes with
+`torch.fft` complex128 and elementwise PyTorch, as the JAX package's c128
+backend does outside any Pallas kernel.
 """
 
 from . import params  # noqa: F401
 from .params import (  # noqa: F401
     DEFAULT_128,
+    GLWE_1_1024_128,
+    GLWE_1_2048_128,
+    GLWE_1_512_128,
+    GLWE_5_256_128,
+    LWE_512_128,
+    LWE_637_128,
     TEST_PARAMS,
     GlweDef,
     LweDef,

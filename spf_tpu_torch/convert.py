@@ -12,7 +12,12 @@ port modules whose spectra the port's own FFT makes:
 - circuit bootstrapping's keys: a bootstrap key of either kind, the
   automorphism keys (`generate_automorphism_keys_u32`), the scheme-switch
   key (`generate_scheme_switch_key_u32`) and the LWE keyswitch key
-  (`generate_lwe_keyswitch_key_u32`) -> `ConversionCycle`.
+  (`generate_lwe_keyswitch_key_u32`) -> `ConversionCycle`;
+- the u64 API's keys (`spf_tpu.runtime.keys`' `SecretKey`, `PublicKey`,
+  `ComputeKey`, or any object with their fields) -> the port's
+  (`runtime.keys`): u64 arrays as int64 with the same bits, the c128
+  spectra carried as they are; `key_arrays` gives a key back as numpy in
+  the JAX package's dtypes, so a key also goes the other way.
 
 Nothing here imports the JAX package: parameters convert by their field
 names.
@@ -106,3 +111,50 @@ def conversion_cycle(bsk, auto_keys, ssk, ksk, params, phase_rot: bool = False,
     JAX package's `Params` -> `ConversionCycle` on `device`."""
     return ConversionCycle(_as_u64(bsk), _as_u64(auto_keys), _as_u64(ssk), _as_u64(ksk),
                            _port_param(params, _params.Params), phase_rot, device=device)
+
+
+def _field(x, device):
+    """A u64 (or binary) array -> int64 tensor, a complex128 spectrum as it is."""
+    x = np.asarray(x)
+    if np.iscomplexobj(x):
+        return torch.from_numpy(x.astype(np.complex128)).to(device)
+    return torus.from_u64_np(x.astype(np.uint64), device)
+
+
+def secret_key(sk, device="cuda"):
+    """A u64 `SecretKey` (lwe_0 [n0], glwe_1 [k, N]) -> the port's."""
+    from .runtime.keys import SecretKey
+
+    device = torus.resolve_device(device)
+    return SecretKey(lwe_0=_field(sk.lwe_0, device), glwe_1=_field(sk.glwe_1, device))
+
+
+def public_key(pk, device="cuda"):
+    """A u64 `PublicKey` (rlwe_1 [2, N]) -> the port's."""
+    from .runtime.keys import PublicKey
+
+    return PublicKey(rlwe_1=_field(pk.rlwe_1, torus.resolve_device(device)))
+
+
+def compute_key(ck, device="cuda"):
+    """A u64 `ComputeKey` of the c128 backend (bsk, auto_keys and ssk
+    complex128 spectra, ksk u64) -> the port's, its keyswitch byte planes
+    made on `device`."""
+    from .runtime.keys import ComputeKey
+
+    device = torus.resolve_device(device)
+    return ComputeKey(**{f: _field(getattr(ck, f), device)
+                         for f in ("bsk", "ksk", "auto_keys", "ssk")})
+
+
+def key_arrays(key) -> dict:
+    """A port key -> {field: numpy array} in the JAX package's dtypes (u64
+    for torus and key bits, complex128 for spectra); derived fields such as
+    the keyswitch byte planes are left out."""
+    out = {}
+    for f in dataclasses.fields(key):
+        t = getattr(key, f.name)
+        if f.name == "ksk_planes" or t is None:
+            continue
+        out[f.name] = t.cpu().numpy() if t.is_complex() else torus.to_u64_np(t)
+    return out

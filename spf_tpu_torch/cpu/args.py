@@ -7,9 +7,10 @@ Plaintext values serialize little-endian; encrypted integers serialize
 as one `EncByte` (8 GLWE bit handles) per byte.
 
 A copy of `spf_tpu/cpu/args.py`. `decrypt_return` takes an encryption
-object with `decrypt_glwe_l1(bit_ct, sk)`, which the port's u64 API will
-provide; until then decrypt a return with `utils.host_crypto`
-(`decrypt_uint_bits_np` over each `EncByte`'s bits).
+object with `decrypt_glwe_l1(bit_ct, sk)`: the u64 API's
+`runtime.encryption.Encryption` (`ev.enc`), which reads tensor and host
+numpy handles alike; `utils.host_crypto.decrypt_uint_bits_np` over each
+`EncByte`'s bits decrypts host handles without it.
 """
 
 from __future__ import annotations

@@ -24,10 +24,11 @@ Register file: 64 registers (`fhe_processor.rs:136`), each Plaintext
 a handle is a concrete GLWE array or an unresolved `LazyCt`).
 
 A copy of `spf_tpu/cpu/processor.py`; the graphs it builds are the
-reference's node for node. The one difference: the reference defaults to
-its u64 `CircuitExecutor`, which the port does not have yet, so the port's
-`FheComputer` needs an executor and raises without one. Handles stay host
-numpy u64 arrays (the executors take and return them), so the identity
+reference's node for node. Without an executor it runs the u64
+`CircuitExecutor(ev)`, as the reference does; the wave machine and the
+per-wave u32 executor plug in through `executor=`. Handles are whatever
+the executor takes and returns (host numpy u64 arrays for the u32
+executors, tensors for the u64 one), held as objects, so the identity
 folding of the two trivial bits and the `id()` caches work as written.
 """
 
@@ -37,6 +38,8 @@ import dataclasses
 import logging
 
 from ..circuits import integer as int_circuits
+from ..runtime.evaluation import Evaluation
+from ..runtime.executor import CircuitExecutor
 from ..runtime.fhe_circuit import CtType, FheCircuit, FheEdge, FheOp
 from ..utils.profiling import metrics
 from .isa import INSTRUCTION_SIZE, RP, SP, decode
@@ -100,17 +103,21 @@ class FheComputer:
     FLUSH_NODE_BUDGET = 200_000
 
     def __init__(self, ev, executor=None):
-        """`ev` gives `.params` and the two trivial GLWE bit handles
-        (`runtime.executor_u32.U32HostEvaluation`). `executor` is the
-        circuit backend: any object with `run(circuit, inputs) -> outputs`
-        over GLWE bit handles, e.g. `runtime.wave_machine.WaveMachine(key,
-        params)` to run every flush as batched CBS / CMux waves on the
-        card, or `runtime.executor_u32.U32CircuitExecutor`."""
+        """`ev` gives `.params` and the two trivial GLWE bit handles: an
+        `Evaluation`, or `runtime.executor_u32.U32HostEvaluation` beside an
+        executor. `executor` overrides the circuit backend: any object with
+        `run(circuit, inputs) -> outputs` over GLWE bit handles, e.g.
+        `runtime.wave_machine.WaveMachine(key, params)` to run every flush
+        as batched CBS / CMux waves on the card's kernels, or
+        `runtime.executor_u32.U32CircuitExecutor`; the default is the u64
+        `CircuitExecutor(ev)`."""
         if executor is None:
-            raise CpuError(
-                "FheComputer needs an executor: pass executor=WaveMachine(key, params) "
-                "(spf_tpu_torch.runtime.wave_machine) or U32CircuitExecutor; the u64 "
-                "CircuitExecutor, the reference's default, is not ported yet")
+            if not isinstance(ev, Evaluation):
+                raise CpuError(
+                    "FheComputer(ev) without an executor runs the u64 CircuitExecutor, which "
+                    "needs an Evaluation; with U32HostEvaluation pass executor=WaveMachine(key, "
+                    "params) (spf_tpu_torch.runtime.wave_machine) or U32CircuitExecutor")
+            executor = CircuitExecutor(ev)
         self.ev = ev
         self.ex = executor
         self.registers = [PtVal(0, 32) for _ in range(64)]

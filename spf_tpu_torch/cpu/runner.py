@@ -1,9 +1,9 @@
 """One-call program runner (≙ reference `parasol_cpu/src/runner.rs:10-27`).
 
-A copy of `spf_tpu/cpu/runner.py` with one difference: the port has no
-u64 executor yet, so `run_program` takes the circuit executor as a
-keyword and passes it to `FheComputer` (e.g. `runtime.wave_machine.
-WaveMachine(key, params)` with `runtime.executor_u32.U32HostEvaluation`).
+A copy of `spf_tpu/cpu/runner.py` that also takes the circuit executor
+as a keyword and passes it to `FheComputer` (e.g. `runtime.wave_machine.
+WaveMachine(key, params)` with `runtime.executor_u32.U32HostEvaluation`);
+without one the computer runs the u64 `CircuitExecutor(ev)`.
 """
 
 from __future__ import annotations
@@ -23,8 +23,8 @@ def run_program(
 ):
     """Load `elf_or_memory` (ELF bytes or a prepared Memory), look up the
     function entry, and run it on an `FheComputer(ev, executor)`.
-    `executor` runs each flush's circuit; without one `FheComputer`
-    raises (the u64 executor, the reference's default, is not ported yet).
+    `executor` runs each flush's circuit; the default is the u64
+    `CircuitExecutor(ev)`, as in the reference.
 
     Returns (memory, return_ptr, computer)."""
     if isinstance(elf_or_memory, (bytes, bytearray)):

@@ -14,6 +14,10 @@ product that is exact:
   of summation;
 - the byte-plane sums are recombined mod 2^64 through a ds f32 pair and
   `torus.from_ds`, in the reference's order (`keyswitch_u32.py:75-84`).
+  A ds pair holds ~48 bits, so the recombined sums are rounded in their
+  low bits as `keyswitch_u32` rounds them; the u64 API's keyswitch
+  (`ops/u64/keyswitch.py`) is exact mod 2^64 and differs from this one
+  there.
 
 The product runs in f64, which no precision setting of PyTorch reaches
 (TF32 or bf16 settings apply to f32 products only) and which is exact on

@@ -1,8 +1,10 @@
 """Parameter sets for the TFHE scheme (PyTorch port).
 
-A copy of the parameter dataclasses of `spf_tpu.params`, so that the
-port imports nothing of the JAX package. The torus is Z_q with
-q = 2**64; the port carries torus elements as wrapping `torch.int64`.
+A copy of the parameter dataclasses, sets and depth model of
+`spf_tpu.params`, so that the port imports nothing of the JAX package.
+The security estimates (`security_level` and its two callers) come with
+the port of `utils/security.py`. The torus is Z_q with q = 2**64; the
+port carries torus elements as wrapping `torch.int64`.
 """
 
 from __future__ import annotations
@@ -87,7 +89,12 @@ class Params:
         return self.l1_params.degree
 
 
+# 128-bit secure instances (reference `sunscreen_tfhe/src/params.rs:218-264`)
 LWE_637_128 = LweDef(dim=637, std=7.25e-5)
+LWE_512_128 = LweDef(dim=512, std=6.6e-4)
+GLWE_1_512_128 = GlweDef(size=1, degree=512, std=6.6e-4)
+GLWE_5_256_128 = GlweDef(size=5, degree=256, std=5e-10)
+GLWE_1_1024_128 = GlweDef(size=1, degree=1024, std=7.2e-8)
 GLWE_1_2048_128 = GlweDef(size=1, degree=2048, std=7e-16)
 
 # the standard 128-bit secure parameter set
@@ -103,9 +110,15 @@ DEFAULT_128 = Params(
     cbs_pbs_radix=RadixDecomposition(count=4, radix_log=8),
 )
 
-# reduced-size instances: INSECURE, for fast tests only
+# reduced-size instances: INSECURE, for fast tests only (the sizes of the
+# reference's TEST_* sets, `sunscreen_tfhe/src/high_level.rs:9-57`)
+TEST_RADIX = RadixDecomposition(count=3, radix_log=4)
 TEST_GLWE_DEF_1 = GlweDef(size=2, degree=128, std=1e-16)
+TEST_RLWE_DEF = GlweDef(size=1, degree=256, std=1e-16)
+TEST_GLWE_DEF_2 = GlweDef(size=3, degree=256, std=1e-16)
 TEST_LWE_DEF_1 = LweDef(dim=128, std=1e-16)
+TEST_LWE_DEF_2 = LweDef(dim=256, std=1e-16)
+TEST_LWE_DEF_3 = LweDef(dim=128, std=0.0)
 
 TEST_PARAMS = Params(
     l0_params=TEST_LWE_DEF_1,
@@ -117,3 +130,10 @@ TEST_PARAMS = Params(
     ss_radix=RadixDecomposition(count=6, radix_log=8),
     tr_radix=RadixDecomposition(count=6, radix_log=7),
 )
+
+
+def noise_exponent_at_depth(depth: float) -> float:
+    """CMux-tree error exponent model for DEFAULT_128: the base-2 error
+    exponent at a given multiplexer-tree depth (reference
+    `parasol_runtime/src/params.rs:103-106`; ~2^-125 at depth 1024)."""
+    return -1.0 / (6.162e-6 * (depth + 304.7668)) - 3.3379
