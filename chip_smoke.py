@@ -19,11 +19,15 @@ Phases, each printing one JSON line with its seconds:
    P of ROT_PS, t at its edges (0, 1, N - 1, N, 2N - 1, 2N, negative,
    > 2^40) and random; the MADs with random phase factor halves,
    Klo = Khi = 32, and each per-plane instance, g = 0-3, at k + 1 = 3, 4
-   and 6, N = 256, B = 129 and 8; `fence` also on odd lengths at each offset
+   and 6, N = 256, B = 129 and 256 (also held at B = 1 and 8, l = 4, K = 32);
+   `fence` also on odd lengths at each offset
    within 16 bytes and below one vector; the batched-row MAD
    (`freq_mad_batched`) at l = 4, K = 1024, B = 256, 32, 64 and 129 over a
    slot buffer of 256 GGSWs, slots repeating and out of order, and on a
-   batched row; the kernels of the CBS and the CMux (`accumulate_decompose`
+   batched row, also at the edge shapes of `spf_tpu_torch.scripts.mad_edges`
+   (B = 1, 31, 33, 62, 255; K = 32, 64, 128, 40; every column on one slot;
+   slots of -1 and nslots giving NaN; k + 1 = 3, 4, 6 at l = 2 and 4; both
+   layouts); the kernels of the CBS and the CMux (`accumulate_decompose`
    at the CBS radix, `mad_horner` g = 2, `fence`, `fwd_ds` P = 8, `inv_ds`
    P = 2 and 4) also at B = 32 and 64, the widths of the wave machine's
    small waves; `fwd_ds` and `inv_ds` also at
@@ -163,7 +167,8 @@ COMBINE = CMUL + DS_ADD
 # the port's kernels (csrc/*.cu) by name; every other kernel in a profile
 # is PyTorch's: the glue around them
 PORT_KERNELS = ("accumulate_decompose_kernel", "rotate_sub_decompose_kernel", "fwd_ds_kernel",
-                "inv_ds_kernel", "mad_horner_kernel", "mad_plane_kernel", "mad_batched_kernel",
+                "inv_ds_kernel", "mad_horner_kernel", "mad_plane_kernel", "mad_planes_kernel",
+                "mad_batched_kernel",
                 "copy_kernel",
                 "phase_kernel", "chain_kernel",
                 "fma_probe_kernel", "fma_probe_fma_kernel", "roll_kernel")
@@ -321,9 +326,13 @@ def phase_kernels(gen, hw):
             nbytes=mad_bytes(group, kp1, ll, k, b, klo + khi), ops=mad_ops(group, kp1, ll, k, b),
         )
 
-    def mad_any_kp1_case(group, kp1_):
+    def mad_any_kp1_case(group, kp1_, b_=129):
         """mad.cu's per-plane g-instance at k + 1 = kp1_ (the test sets' 3 and
-        4, GLWE_5_256_128's 6) at N = 256 (K = 128), B = 129; also B = 8."""
+        4, GLWE_5_256_128's 6) at N = 256 (K = 128), B = b_ (129: also B = 8;
+        256: GLWE_5_256_128's width at the paths' batch); at k + 1 = 3, B =
+        129 also every edge shape of `scripts.mad_edges` of its g."""
+        from spf_tpu_torch.scripts import mad_edges
+
         k_, l_, klo_, khi_ = 128, 2, 16, 8
         ns = max(1, (1 << group) - 1)
 
@@ -335,16 +344,22 @@ def phase_kernels(gen, hw):
                 d, row, (spectrum(group, klo_, b_, exp=0), spectrum(group, khi_, b_, exp=0)))
 
         kernel, plain = mad_fns(group)
+        edges = dict(edge_check=lambda: mad_edges.check_plane(gen, group)) \
+            if (kp1_, b_) == (3, 129) else {}
         return dict(
-            name=f"mad_any_kp1_g{group} k+1={kp1_}", row=f"mad_any_kp1_g{group}",
+            name=f"mad_any_kp1_g{group} k+1={kp1_}" + ("" if b_ == 129 else f" B={b_}"),
+            row=f"mad_any_kp1_g{group}",
             source="spf_tpu_torch/csrc/mad.cu", replaces="spf_tpu/ops/mad_pallas.py:94",
-            note=f"mad.cu's per-plane g = {group} instance (k + 1 a runtime loop bound, one output "
-                 "plane a block); parts: k + 1 = 3, 4, 6 at [l = 2, k + 1, K = 128, B = 129], "
-                 "also held bit for bit at B = 8",
-            kernel=kernel, plain=plain, args=inputs(129), extra_args=[inputs(8)],
+            note=f"mad.cu's g = {group} instance for k + 1 != 2 (mad_planes_kernel: a block one "
+                 "bin x 32-128 columns x every output plane; mad_plane_kernel, one plane a block, "
+                 "where it was measured faster); parts: k + 1 = 3, 4, 6 at [l = 2, k + 1, "
+                 "K = 128] with B = 129 (also held bit for bit at B = 8) and B = 256; "
+                 "edge_shapes: scripts.mad_edges at this g",
+            kernel=kernel, plain=plain, args=inputs(b_),
+            extra_args=[inputs(8)] if b_ == 129 else [], **edges,
             plain_copies=1,  # thousands of small launches: one copy times them
-            nbytes=mad_bytes(group, kp1_, l_, k_, 129, klo_ + khi_),
-            ops=mad_ops(group, kp1_, l_, k_, 129),
+            nbytes=mad_bytes(group, kp1_, l_, k_, b_, klo_ + khi_),
+            ops=mad_ops(group, kp1_, l_, k_, b_),
         )
 
     def rotation_case(fused, cols, **extra):
@@ -399,7 +414,8 @@ def phase_kernels(gen, hw):
         mad_case("mad_horner_g2", GROUP_CBS, dfft_cbs, extra_bs=SMALL_WAVES),
         mad_case("mad_horner_g1", 1, dfft),
         mad_case("freq_mad", 0, dfft),
-        *(mad_any_kp1_case(g, kp) for g in (3, 2, 1, 0) for kp in (3, 4, 6)),
+        *(mad_any_kp1_case(g, kp, bb) for g in (3, 2, 1, 0) for bb in (129, 256)
+          for kp in (3, 4, 6)),
         *batched_mad_cases(gen, dfft_cbs),
         dict(
             name="fence",
@@ -434,9 +450,11 @@ def batched_mad_cases(gen, dfft_cbs) -> list:
     and B of BATCHED_BS over a slot-major buffer of BATCHED_SLOTS GGSWs, the
     slot indices random (repeating, out of order); the first part also on
     a batched row [k+1, l, k+1, K, B] as circuit bootstrapping makes them
-    (no slot indices). One row with a part a width; the bound counts the
-    distinct slots the indices name."""
+    (no slot indices) and at every edge shape of `scripts.mad_edges`
+    (k + 1 = 3, 4, 6 among them). One row with a part a width; the bound
+    counts the distinct slots the indices name."""
     from spf_tpu_torch.ops import mad
+    from spf_tpu_torch.scripts import mad_edges
 
     dev = "cuda"
     l, kp1, k, _ = dfft_cbs[0].shape
@@ -456,7 +474,9 @@ def batched_mad_cases(gen, dfft_cbs) -> list:
         slots = torch.randint(0, BATCHED_SLOTS, (cols,), generator=gen, device=dev,
                               dtype=torch.int32)
         distinct = int(torch.unique(slots).numel())
-        extra = [(d, spectrum(kp1, l, kp1, k, cols), None, -1)] if cols == BATCHED_BS[0] else []
+        first = cols == BATCHED_BS[0]
+        extra = [(d, spectrum(kp1, l, kp1, k, cols), None, -1)] if first else []
+        edges = dict(edge_check=lambda: mad_edges.check_batched(gen)) if first else {}
         cases.append(dict(
             name=f"freq_mad_batched B={cols}", row="freq_mad_batched",
             source="spf_tpu_torch/csrc/mad.cu", replaces="spf_tpu/ops/mad_pallas.py:94",
@@ -464,9 +484,11 @@ def batched_mad_cases(gen, dfft_cbs) -> list:
                  "own GGSW row in place, in place of the XLA glue freq_mad under a batched row "
                  "(spf_tpu/ops/bootstrap_u32.py:161-178); parts: B = 256, 32, 64, 129 over a "
                  f"slot buffer of {BATCHED_SLOTS} (slots repeating, out of order; the bound "
-                 "counts the distinct slots), B = 256 also on a batched row",
+                 "counts the distinct slots), B = 256 also on a batched row; edge_shapes: "
+                 "scripts.mad_edges (B = 1-255, one slot, slots outside as NaN, K = 32-128 and "
+                 "40, k + 1 = 3, 4, 6, both layouts)",
             kernel=mad.freq_mad_batched, plain=mad.freq_mad_batched_plain,
-            args=(d, rows, slots, 0), extra_args=extra,
+            args=(d, rows, slots, 0), extra_args=extra, **edges,
             nbytes=distinct * row_bytes + 16 * (l * kp1 + kp1) * k * cols + 4 * cols,
             ops=k * cols * kp1 * l * kp1 * (CMUL + CADD), distinct_slots=distinct,
         ))
@@ -671,7 +693,7 @@ def merge_rows(cases, results) -> list:
         m = merged[name]
         m["parts"][r["name"]] = {key: r[key] for key in (
             "bitexact", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "share",
-            "host_us_per_call", "yardstick_ms", "distinct_slots") if key in r}
+            "host_us_per_call", "yardstick_ms", "distinct_slots", "edge_shapes") if key in r}
         m["bitexact"] = m["bitexact"] and r["bitexact"]
         m["max_abs_err"] = max(m["max_abs_err"], r["max_abs_err"])
     return rows
@@ -690,6 +712,8 @@ def measure(c) -> dict:
     for extra in c.get("extra_args", ()):
         e_exact, e_err = compare(c["name"], c["kernel"](*extra), c["plain"](*extra))
         exact, err = exact and e_exact, max(err, e_err)
+    edges = c["edge_check"]() if "edge_check" in c else None  # bit for bit at its edge shapes
+    exact = exact and not (edges and edges["not_bitexact"])
     del got, want
     copies = cold_copies(args, c["nbytes"])
     kernel_ms, host_us = device_ms(c["kernel"], copies, 50)
@@ -715,6 +739,7 @@ def measure(c) -> dict:
         share=bms / kernel_ms, bytes=c["nbytes"], ops=c["ops"], host_us_per_call=host_us,
         note=c.get("note"), seconds=time.perf_counter() - t0, **extra,
         **{k: c[k] for k in ("distinct_slots",) if k in c},
+        **({"edge_shapes": edges} if edges else {}),
     )
 
 

@@ -1,6 +1,7 @@
 """A/B runs of designs of a kernel source on one CUDA card.
 
-    python -m spf_tpu_torch.scripts.kernel_ab [--source fft|rot_decomp] DIR [DIR ...] [--check DIR]
+    python -m spf_tpu_torch.scripts.kernel_ab [--source fft|rot_decomp|mad] DIR [DIR ...]
+        [--check DIR] [--mul32] [--alone]
 
 Each DIR holds a copy of the package, `DIR/spf_tpu_torch/`, whose
 `csrc/<source>.cu` is one design (or one diagnostic edit of a design). The
@@ -27,6 +28,18 @@ call, with inputs rotating past the L2; host us a call):
   (the single-bit PBS at DEFAULT_128, batch 256) once in its plain and its
   fuse_rot form under the profiler: the rotation kernel's device ms a
   launch there and the path's device ms a call.
+- `mad`: `mad_batched_kernel` (`freq_mad_batched`) at [l = 4, k+1 = 2,
+  K = 1024] with B = 32, 64, 129 and 256 over a slot buffer of 256 GGSWs
+  (random slots), and `mad_plane_kernel` at k+1 in {3, 4, 6} x g in 0..3 x
+  B in {8, 129, 256} at [l = 2, K = 128]. `--check DIR` also holds that
+  copy bit for bit at the edge shapes of `scripts.mad_edges`. Each run
+  also drives path 5 (the entry points at k+1 = 3, 4, 6) and path 6's
+  mul8 (the wave machine at DEFAULT_128, wide CMux waves; keys made on the
+  card) once under the profiler: each kernel instance's device us a launch
+  there, the outputs decrypted; with `--mul32` also path 7's mul32 (the
+  encrypted CPU, narrow waves), ~1 minute more a run; with `--alone`
+  only the kernels alone (~20 s a run). The paths are driven
+  by the repository's `chip_smoke.py`, imported beside each copy's package.
 
 The build's lines give each kernel's registers and spills (ptxas), the
 last line the card's name and power limit.
@@ -216,7 +229,167 @@ for form, fuse_rot in (("plain", False), ("fuse_rot", True)):
 print("RESULT " + json.dumps(res), flush=True)
 '''
 
-RUN = {"fft": RUN_FFT, "rot_decomp": RUN_ROT}
+RUN_MAD = r'''
+import json, sys, time
+import numpy as np
+import torch
+sys.path.insert(0, ".")
+sys.path.append(sys.argv[2])  # the repository root: chip_smoke.py runs the paths
+import chip_smoke as cs
+from spf_tpu_torch.ops import mad
+from spf_tpu_torch.scripts import device_ms, mad_edges, profiled_kernels
+
+gen = torch.Generator(device="cuda").manual_seed(7)
+
+def spectrum(*shape, exp):
+    return mad_edges.spectrum(gen, shape, exp)
+
+def same(a, b):
+    return all(torch.equal(x.view(torch.int32), y.view(torch.int32)) for x, y in zip(a, b))
+
+def copies(args, nbytes):
+    return cs.cold_copies(args, nbytes)
+
+res = {}
+# the batched-row MAD at phase 3's shapes: [l = 4, k+1 = 2, K = 1024], B
+# columns over a slot buffer of 256 GGSWs, slots random
+l, kp1, k = 4, 2, 1024
+rows = spectrum(256, kp1, l, kp1, k, exp=60)
+d_all = spectrum(l, kp1, k, 256, exp=20)
+for b in (32, 64, 129, 256):
+    d = tuple(x[..., :b].contiguous() for x in d_all)
+    slots = torch.randint(0, 256, (b,), generator=gen, device="cuda", dtype=torch.int32)
+    distinct = int(torch.unique(slots).numel())
+    nbytes = distinct * 16 * kp1 * l * kp1 * k + 16 * (l * kp1 + kp1) * k * b + 4 * b
+    args = (d, rows, slots, 0)
+    ok = same(mad.freq_mad_batched(*args), mad.freq_mad_batched_plain(*args))
+    ms, host_us = device_ms(mad.freq_mad_batched, copies(args, nbytes), 50)
+    res[f"batched B={b}"] = dict(bitexact=ok, ms=ms, host_us=host_us, distinct_slots=distinct)
+del rows, d_all
+# the per-plane MAD at [l = 2, K = 128] (Klo = 16, Khi = 8)
+l, k, klo = 2, 128, 16
+for kp1 in (3, 4, 6):
+    for g in range(4):
+        kernel, plain = cs.mad_fns(g)
+        ns = max(1, (1 << g) - 1)
+        for b in (8, 129, 256):
+            args = (spectrum(l, kp1, k, b, exp=20),
+                    spectrum(*((kp1, l, kp1, k) if g == 0 else (ns, kp1, l, kp1, k)), exp=60))
+            if g:
+                args += ((spectrum(g, klo, b, exp=0), spectrum(g, k // klo, b, exp=0)),)
+            ok = same(kernel(*args), plain(*args))
+            nbytes = cs.mad_bytes(g, kp1, l, k, b, klo + k // klo)
+            ms, host_us = device_ms(kernel, copies(args, nbytes), 50)
+            res[f"plane g={g} k+1={kp1} B={b}"] = dict(bitexact=ok, ms=ms, host_us=host_us)
+if sys.argv[1] == "check":
+    res["shapes"] = mad_edges.check(gen)
+
+if "alone" in sys.argv[3:]:
+    print("RESULT " + json.dumps(res), flush=True)
+    sys.exit(0)
+
+def in_path(by_name, kernel):
+    # device us a launch of the kernel's instances in a profiled call, by instance
+    out = {}
+    for name, (ms, n) in by_name.items():
+        if name.startswith(kernel):
+            out[name.split("(")[0]] = dict(us=1e3 * ms / n, launches=n)
+    return out
+
+# path 5: the entry points at k + 1 = 3, 4, 6 (N = 256, n0 = 16, B = 8)
+from spf_tpu_torch.ops import encryption, torus
+from spf_tpu_torch.ops.bootstrap import Bootstrap
+from spf_tpu_torch.ops.lut import generate_lut_np
+from spf_tpu_torch.ops.multibit import MultibitBootstrap
+from spf_tpu_torch.params import DEFAULT_128, GlweDef, LweDef, RadixDecomposition
+
+lwe, radix = LweDef(dim=16, std=1e-16), RadixDecomposition(count=2, radix_log=16)
+rng = np.random.default_rng(cs.SEED + 4)
+lwe_sk = rng.integers(0, 2, lwe.dim).astype(np.int64)
+msgs = np.arange(8, dtype=np.uint64) % 8
+ct = torus.from_u64_np(encryption.encrypt_lwe_np(
+    rng, msgs << np.uint64(64 - cs.BITS - 1), lwe_sk, lwe).T.copy(), "cuda")
+mods, correct = [], []
+for kk in cs.WIDE_KS:
+    glwe = GlweDef(size=kk, degree=256, std=1e-16)
+    kgen = torch.Generator().manual_seed(cs.SEED + kk)
+    glwe_sk = encryption.generate_glwe_sk(glwe, kgen)
+    lut = generate_lut_np([cs.lut_fn], glwe, cs.BITS)
+    for group in (cs.GROUP, cs.GROUP_CBS):
+        bsk = encryption.generate_multibit_bsk(lwe_sk, glwe_sk, glwe, radix, group, kgen)
+        mods.append((MultibitBootstrap(bsk, lut, glwe, radix, group, device="cuda"), glwe_sk))
+    bsk = encryption.generate_bsk(lwe_sk, glwe_sk, glwe, radix, kgen)
+    for fuse_rot, phase_rot in cs.FORMS.values():
+        mods.append((Bootstrap(bsk, lut, glwe, radix, fuse_rot, phase_rot, device="cuda"), glwe_sk))
+for m, sk in mods:
+    n_ok, _ = cs.decode(m(ct), sk.numpy().reshape(-1).astype(np.uint64), cs.lut_fn(msgs))
+    correct.append(n_ok)
+torch.cuda.synchronize()
+by_name = profiled_kernels(lambda: [m(ct) for m, _ in mods])
+res["path 5"] = dict(correct=correct, device_ms=sum(ms for ms, _ in by_name.values()),
+                     mad_plane_kernel=in_path(by_name, "mad_plane"))
+del mods
+
+# path 6's mul8 (wide CMux waves), and path 7's mul32 (narrow) if asked
+from spf_tpu_torch.runtime.wave_machine import WaveMachine
+keys = cs.wave_keys()
+wm = WaveMachine(keys.key, DEFAULT_128)
+sk = keys.glwe_sk.cpu().numpy().astype(np.uint64)
+g, out_keys, n_inst, fn = cs.intop_graph("mul", 8)
+wm.schedule(g)
+a_vals, b_vals, inputs = cs.intop_inputs(keys.rng, keys.lwe_sk, DEFAULT_128.l0_params, 8, n_inst)
+out = wm.run(g, inputs)
+torch.cuda.synchronize()
+values, n_ok, margins = cs.intop_decode(out, out_keys, sk, DEFAULT_128.l1_params,
+                                        [fn(int(x), int(y)) for x, y in zip(a_vals, b_vals)])
+by_name = profiled_kernels(lambda: wm.run(g, inputs))
+res["path 6 mul8"] = dict(correct=f"{n_ok}/{n_inst}", margin_worst=min(margins),
+                          margin_median=float(np.median(margins)),
+                          device_ms=sum(ms for ms, _ in by_name.values()),
+                          mad_batched_kernel=in_path(by_name, "mad_batched_kernel"))
+if "mul32" in sys.argv[3:]:
+    import dataclasses
+    from spf_tpu_torch.cpu import ArgsBuilder, FheComputer, Memory
+    from spf_tpu_torch.cpu.isa import RP, SP, Asm
+    from spf_tpu_torch.ops.bootstrap import bsk_to_freq
+    from spf_tpu_torch.runtime.executor_u32 import U32HostEvaluation
+    from spf_tpu_torch.utils import host_crypto as hc
+
+    p = DEFAULT_128
+    g01 = encryption.encrypt_ggsw_scalar(torch.tensor([0, 1], device="cuda"), keys.glwe_sk,
+                                         p.l1_params, p.cbs_radix, keys.gen)
+    wm = WaveMachine(dataclasses.replace(keys.key, ggsw_zero_freq=bsk_to_freq(g01[0]),
+                                         ggsw_one_freq=bsk_to_freq(g01[1])), p)
+    mrng = np.random.default_rng(cs.MUL32_SEED)
+    cts = [hc.encrypt_uint_bits_np(mrng, v, 32, sk, p.l1_params) for v in cs.MUL32]
+
+    def run():
+        mem = Memory()
+        entry = mem.allocate_program(Asm().load(1, SP, 32, offset=0).load(2, SP, 32, offset=4)
+                                     .mul(3, 1, 2).store(RP, 3, 32).ret().instrs)
+        call = ArgsBuilder()
+        for c in cts:
+            call = call.arg_encrypted(c)
+        rp = FheComputer(U32HostEvaluation(p), executor=wm).run_program(
+            entry, mem, call.return_value(32).build())
+        return mem, rp
+
+    mem, rp = run()
+    torch.cuda.synchronize()
+    got = 0
+    for i in range(4):
+        for j, c in enumerate(mem.load_byte(rp + i).bits):
+            got |= hc.decrypt_glwe_bit_np(c, sk, p.l1_params) << (8 * i + j)
+    by_name = profiled_kernels(run)
+    res["path 7 mul32"] = dict(got=got, want=(cs.MUL32[0] * cs.MUL32[1]) & 0xFFFFFFFF,
+                               device_ms=sum(ms for ms, _ in by_name.values()),
+                               mad_batched_kernel=in_path(by_name, "mad_batched_kernel"))
+print("RESULT " + json.dumps(res), flush=True)
+'''
+
+RUN = {"fft": RUN_FFT, "rot_decomp": RUN_ROT, "mad": RUN_MAD}
+# the repository root, whose chip_smoke.py drives the paths of RUN_MAD
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 BUILD = ("import sys; sys.path.insert(0, '.'); from spf_tpu_torch.kernels import build; "
          "build.build((sys.argv[1],))")
 
@@ -241,6 +414,11 @@ def main(argv=None) -> list:
         i = args.index("--check")
         check = args[i + 1]
         del args[i:i + 2]
+    extra = []
+    for flag in ("--mul32", "--alone"):
+        if flag in args:
+            args.remove(flag)
+            extra.append(flag[2:])
     dirs = args + ([check] if check else [])
     lines = []
     procs = {d: subprocess.Popen([sys.executable, "-c", BUILD, source], cwd=d,
@@ -259,7 +437,7 @@ def main(argv=None) -> list:
     for d in dirs + dirs[::-1]:
         mode = "check" if d == check else "time"
         check = None if d == check else check  # the shape check once
-        run = subprocess.run([sys.executable, "-c", RUN[source], mode], cwd=d,
+        run = subprocess.run([sys.executable, "-c", RUN[source], mode, ROOT, *extra], cwd=d,
                              capture_output=True, text=True, timeout=900)
         got = [ln for ln in run.stdout.splitlines() if ln.startswith("RESULT ")]
         lines.append(emit(dict(design=d, rc=run.returncode,
