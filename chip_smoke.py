@@ -12,7 +12,9 @@ Phases, each printing one JSON line with its seconds:
    `spf_tpu_torch.scripts.steps_per_clock`);
 2. build: every CUDA kernel from csrc/, one nvcc each, all in parallel;
    each source's registers and spills, and the opcodes of each chain
-   probe kernel, the MAD and the R = 8 FFT kernels (cuobjdump -sass);
+   probe kernel, the roll kernel, the MAD and the R = 8 FFT kernels
+   (cuobjdump -sass; fails unless the roll's loop shows at least
+   ROLL_CHAINS x ROLL_UNROLL FADDs, `csrc/probe.cu`);
 3. each kernel against its plain PyTorch version on the card, at the
    DEFAULT_128 shapes of the paths below (bit for bit; the rotation
    kernels also at B = 64 and at every N of ROT_NS with every B of ROT_BS,
@@ -40,7 +42,11 @@ Phases, each printing one JSON line with its seconds:
    `phase_minus_one` at K = 1024 (B = 256 and 8, bit-reversed and natural
    order, t at its edges and beyond 2N), every `chain` body, both
    `fma_probe` entry points (against zeros and against the exact f64
-   error) and `roll`, at the probe scripts' shapes;
+   error) and `roll`, at the probe scripts' shapes; `phase_minus_one` and
+   `roll` also at the edge shapes of `spf_tpu_torch.scripts.probe_edges`
+   (K = 2-2048 x B = 1, 8, 33, 256 in both orders; ragged rows and
+   columns, shift 0, rows - 1 and negative, iters 0, 1, 7, 9, 15 and 17,
+   iters x shift beyond 2^31, 4099 rows);
 4. small runs on the card (kernels) and on the CPU (plain versions),
    bit-identical outputs: a multi-bit PBS (N = 256, n0 = 32, g = 3,
    B = 8), the single-bit PBS in its three forms (N = 256, n0 = 16) and
@@ -621,7 +627,7 @@ def phase_and_probe_cases(gen, hw) -> list:
     rate for the instructions of their step (`card()`'s `hw`)."""
     from spf_tpu_torch.ops import phase_rot
     from spf_tpu_torch.params import DEFAULT_128
-    from spf_tpu_torch.scripts import vpu_probe
+    from spf_tpu_torch.scripts import probe_edges, vpu_probe
 
     dev = "cuda"
     n = DEFAULT_128.l1_params.degree
@@ -639,9 +645,12 @@ def phase_and_probe_cases(gen, hw) -> list:
         name="phase_minus_one", source="spf_tpu_torch/csrc/phase.cu",
         replaces="spf_tpu/ops/phase_rot.py:147",
         note="timed at K = 1024, B = 256 with perm = scrambled_perm(K), as step_microbench "
-             "calls it; also held bit for bit in natural order and at B = 8",
+             "calls it; also held bit for bit in natural order and at B = 8; edge_shapes: "
+             "scripts.probe_edges.check_phase (K 2-2048 x B 1, 8, 33, 256, both orders, t at "
+             "its edges and beyond 2N)",
         kernel=phase_rot.phase_minus_one, plain=phase_rot.phase_minus_one_plain,
         args=(t_b, n, perm), extra_args=[(t_b, n, None), (t_8, n, perm), (t_8, n, None)],
+        edge_check=lambda: probe_edges.check_phase(gen),
         nbytes=4 * 4 * k * BATCH + 8 * BATCH + 4 * 4 * 2 * n + 4 * k,
         ops=BATCH * ((k - 1) * CMUL + k * DS_ADD),  # the doubling, then -1 on the real part
     )]
@@ -669,8 +678,12 @@ def phase_and_probe_cases(gen, hw) -> list:
                       plain=vpu_probe.fma_probe_fma_plain))
     cases.append(dict(
         name="roll", source="spf_tpu_torch/csrc/probe.cu", replaces="scripts/vpu_probe.py:178",
-        note="[1024, 512], 400 steps of roll(v, 8, axis=0) + 1.0; bounded by its adds",
+        note="[1024, 512], 400 steps of roll(v, 8, axis=0) + 1.0; bounded by its adds; "
+             "edge_shapes: scripts.probe_edges.ROLL_CASES (ragged rows and columns, shift 0, "
+             "rows - 1 and negative, iters 0, 1, 7, 9, 15, 17, iters x shift beyond 2^31, "
+             "4099 rows)",
         kernel=vpu_probe.roll, plain=vpu_probe.roll_plain, args=(x["roll"],), plain_copies=1,
+        edge_check=lambda: probe_edges.check_roll(gen),
         nbytes=2 * 4 * elems, ops=elems * vpu_probe.ITERS,
         ops_per_s=chain_peak_per_s(1, vpu_probe.ROLL_MIX, hw),
     ))
@@ -1855,6 +1868,25 @@ def sass_histogram(path: str, kernel: str) -> dict:
     return {name: ops for name, ops in funcs.items() if kernel in name}
 
 
+def check_roll_sass(hist: dict) -> None:
+    """The roll kernel's unrolled loop issues every add of every chain as
+    its own FADD: at least ROLL_CHAINS x ROLL_UNROLL of them (`csrc/probe.cu`);
+    fewer means the compiler merged adds."""
+    from spf_tpu_torch.kernels import build as kbuild
+
+    with open(os.path.join(kbuild.CSRC, "probe.cu")) as fh:
+        src = fh.read()
+    want = 1
+    for name in ("ROLL_CHAINS", "ROLL_UNROLL"):
+        want *= int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+    if "cuobjdump" in hist:
+        raise AssertionError(f"roll_kernel: no SASS to count ({hist})")
+    fadds = [ops.get("FADD", 0) for ops in hist.values()]
+    if len(fadds) != 1 or fadds[0] < want:
+        raise AssertionError(f"roll_kernel: FADDs {fadds} in the SASS, want one kernel with "
+                             f">= {want}")
+
+
 def timed(name: str, fn):
     t0 = time.perf_counter()
     out = fn()
@@ -1880,11 +1912,14 @@ def main() -> int:
     for name in kbuild.SOURCES:
         with open(f"{kbuild.BUILD_DIR}/{name}.log", errors="replace") as fh:
             ptxas[name] = [ln.strip() for ln in fh if "registers" in ln or "spill" in ln]
+    roll_sass = sass_histogram(kbuild.library_path("probe"), "roll_kernel")
     emit(dict(phase="build", seconds=time.perf_counter() - t0, per_source_s=per_source,
               ptxas=ptxas,
               chain_sass_opcodes=sass_histogram(kbuild.library_path("probe"), "chain_kernel"),
+              roll_sass_opcodes=roll_sass,
               mad_sass_opcodes=sass_histogram(kbuild.library_path("mad"), "mad_horner_kernel"),
               fft_sass_opcodes=sass_histogram(kbuild.library_path("fft"), "ds_kernelILi8E")))
+    check_roll_sass(roll_sass)
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     results = timed("kernels_vs_plain", lambda: phase_kernels(gen, hw))

@@ -31,11 +31,21 @@
 // into v + 1200) or merge two ops into one instruction; chip_smoke.py's
 // build phase counts each chain kernel's SASS opcodes.
 // fma_probe: two entry points, `a*b - p` as written (0 under -fmad=false)
-// and __fmaf_rn(a, b, -p) (the exact error term). roll: a block owns a strip
-// of 4 columns and all rows in two shared-memory buffers; each step reads
-// row (r − shift) mod R of one buffer, adds 1.0f and writes row r of the
-// other, then the block synchronises: every step moves the data, in the
-// script's order.
+// and __fmaf_rn(a, b, -p) (the exact error term).
+// roll: a roll only permutes, and every element takes the same `iters` adds
+// of 1.0f in the same order wherever it sits, so out[r, c] is
+// x[(r − iters·shift) mod rows, c] followed by those adds: the roll is
+// carried in the index. On the flat index e = r·cols + c the source is
+// (e − off·cols) mod rows·cols, off = iters·shift mod rows (reduced in
+// 64-bit, so iters·shift may exceed 2^31). A thread loads ROLL_CHAINS
+// elements ROLL_THREADS apart (each warp load 128 contiguous bytes but at
+// the wrap), runs their chains interleaved in registers, ROLL_UNROLL steps
+// a loop iteration, and stores each once: no shared memory, no barrier. At
+// [1024, 512] that is 1024 blocks of 256 threads, one wave on 132 SMs (62
+// warps an SM, two chains each). Two chains of 16 steps an iteration timed
+// fastest; 1, 4 or 8 chains, or 4 or 8 steps, 1-9% slower (PERF.md).
+// Without fast-math the adds of one chain can be neither merged nor
+// reordered (chip_smoke.py's build phase counts the loop's FADDs).
 
 #include <cstdint>
 
@@ -154,33 +164,36 @@ __global__ void fma_probe_fma_kernel(const float* __restrict__ a, const float* _
   e[i] = __fmaf_rn(a[i], b[i], -p);
 }
 
-constexpr int ROLL_W = 4;  // columns per block
-constexpr int ROLL_THREADS = 1024;
+constexpr int ROLL_THREADS = 256;
+constexpr int ROLL_CHAINS = 2;   // independent elements a thread
+constexpr int ROLL_UNROLL = 16;  // steps a loop iteration
 
-__global__ void roll_kernel(const float* __restrict__ x, float* __restrict__ out, int rows,
-                            int cols, int shift, int iters) {
-  extern __shared__ float buf[];  // [2][rows][ROLL_W]
-  const int cw = threadIdx.x % ROLL_W;
-  const int r0 = threadIdx.x / ROLL_W;
-  const int rstep = ROLL_THREADS / ROLL_W;
-  const int c = blockIdx.x * ROLL_W + cw;
-  const bool live = c < cols;
-  float* src = buf;
-  float* dst = buf + rows * ROLL_W;
-  for (int r = r0; r < rows; r += rstep) src[r * ROLL_W + cw] = live ? x[(size_t)r * cols + c] : 0.0f;
-  __syncthreads();
-  for (int s = 0; s < iters; ++s) {
-    for (int r = r0; r < rows; r += rstep) {
-      const int from = r >= shift ? r - shift : r - shift + rows;
-      dst[r * ROLL_W + cw] = src[from * ROLL_W + cw] + 1.0f;
-    }
-    __syncthreads();
-    float* tmp = src;
-    src = dst;
-    dst = tmp;
+// n = rows·cols elements; back = off·cols, in [0, n)
+__global__ void __launch_bounds__(ROLL_THREADS)
+    roll_kernel(const float* __restrict__ x, float* __restrict__ out, long long n, long long back,
+                int iters) {
+  const long long base = (long long)blockIdx.x * (ROLL_THREADS * ROLL_CHAINS) + threadIdx.x;
+  float v[ROLL_CHAINS];
+#pragma unroll
+  for (int i = 0; i < ROLL_CHAINS; ++i) {
+    const long long e = base + i * ROLL_THREADS;
+    v[i] = e < n ? __ldg(x + (e >= back ? e - back : e - back + n)) : 0.0f;
   }
-  if (live)
-    for (int r = r0; r < rows; r += rstep) out[(size_t)r * cols + c] = src[r * ROLL_W + cw];
+  int s = 0;
+  for (; s + ROLL_UNROLL <= iters; s += ROLL_UNROLL) {
+#pragma unroll
+    for (int u = 0; u < ROLL_UNROLL; ++u)
+#pragma unroll
+      for (int i = 0; i < ROLL_CHAINS; ++i) v[i] += 1.0f;
+  }
+  for (; s < iters; ++s)
+#pragma unroll
+    for (int i = 0; i < ROLL_CHAINS; ++i) v[i] += 1.0f;
+#pragma unroll
+  for (int i = 0; i < ROLL_CHAINS; ++i) {
+    const long long e = base + i * ROLL_THREADS;
+    if (e < n) out[e] = v[i];
+  }
 }
 
 }  // namespace
@@ -222,13 +235,17 @@ extern "C" int spf_fma_probe_fma(const float* a, const float* b, float* e, int n
 }
 
 // x, out f32 [rows, cols]; out = `iters` steps of roll(v, shift, 0) + 1.0,
-// shift in [0, rows), rows <= 1536 (two buffers of 4 columns in 48 KiB)
+// shift in [0, rows)
 extern "C" int spf_roll(const float* x, float* out, int rows, int cols, int shift, int iters,
                         void* stream) {
-  if (rows < 1 || rows > 1536 || cols < 1 || shift < 0 || shift >= rows || iters < 0)
+  if (rows < 1 || cols < 1 || shift < 0 || shift >= rows || iters < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = 2 * (size_t)rows * ROLL_W * sizeof(float);
-  roll_kernel<<<(cols + ROLL_W - 1) / ROLL_W, ROLL_THREADS, smem, (cudaStream_t)stream>>>(
-      x, out, rows, cols, shift, iters);
+  const long long n = (long long)rows * cols;
+  const long long off = (long long)(iters % rows) * shift % rows;
+  const long long per_block = ROLL_THREADS * ROLL_CHAINS;
+  const long long blocks = (n + per_block - 1) / per_block;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  roll_kernel<<<(unsigned)blocks, ROLL_THREADS, 0, (cudaStream_t)stream>>>(x, out, n, off * cols,
+                                                                          iters);
   return spf_last_error();
 }

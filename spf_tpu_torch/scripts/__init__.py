@@ -6,9 +6,11 @@
   multi-bit rotation with its phases hoisted and fenced;
 - `vpu_probe` (≙ `scripts/vpu_probe.py`): the card's f32 and i32 chain
   rates, the fma question, matrix-product rates and a roll;
-- `kernel_ab` (the port's own): designs of a kernel source (`fft.cu` or
-  `rot_decomp.cu`) timed against each other in turns, alone and inside
-  the path that runs them, each a copy of the package with its own source.
+- `kernel_ab` (the port's own): designs of a kernel source (`fft.cu`,
+  `rot_decomp.cu`, `mad.cu`, `phase.cu` or `probe.cu`) timed against each
+  other in turns, alone and inside the path or probe that runs them, each
+  a copy of the package with its own source; `mad_edges` and
+  `probe_edges` hold the edge shapes that a copy is checked at.
 
 Each runs on a CUDA card as `python -m spf_tpu_torch.scripts.<name>`
 (without a card it raises), prints one JSON line per measurement and

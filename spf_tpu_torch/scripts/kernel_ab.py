@@ -1,7 +1,7 @@
 """A/B runs of designs of a kernel source on one CUDA card.
 
-    python -m spf_tpu_torch.scripts.kernel_ab [--source fft|rot_decomp|mad] DIR [DIR ...]
-        [--check DIR] [--mul32] [--alone]
+    python -m spf_tpu_torch.scripts.kernel_ab [--source fft|rot_decomp|mad|phase|probe]
+        DIR [DIR ...] [--check DIR] [--mul32] [--alone]
 
 Each DIR holds a copy of the package, `DIR/spf_tpu_torch/`, whose
 `csrc/<source>.cu` is one design (or one diagnostic edit of a design). The
@@ -40,6 +40,18 @@ call, with inputs rotating past the L2; host us a call):
   encrypted CPU, narrow waves), ~1 minute more a run; with `--alone`
   only the kernels alone (~20 s a run). The paths are driven
   by the repository's `chip_smoke.py`, imported beside each copy's package.
+- `phase`: `phase_minus_one` at K = 1024 with B = 256 and 8, each with
+  `perm = scrambled_perm(K)` (as `step_microbench` calls it) and in
+  natural order. `--check DIR` also holds that copy bit for bit at the
+  edge shapes of `scripts.probe_edges` (`check_phase`). Each run also
+  profiles `step_microbench`'s "pm1 doubling" and "phase step (full)"
+  components (ITERS calls each, at batch 256): the kernel's device us a
+  launch there and the component's device us a call; `--alone` skips them.
+- `probe`: `roll` at [1024, 512], 400 steps of shift 8 (`vpu_probe`'s
+  shape), beside the f32 mul chain and `fma_probe` of the same source.
+  `--check DIR` also holds that copy's roll bit for bit at
+  `probe_edges.ROLL_CASES`. Each run also times the roll as `vpu_probe`
+  times it (one input, 5 calls, `vpu_probe.timed`); `--alone` skips that.
 
 The build's lines give each kernel's registers and spills (ptxas), the
 last line the card's name and power limit.
@@ -387,8 +399,80 @@ if "mul32" in sys.argv[3:]:
 print("RESULT " + json.dumps(res), flush=True)
 '''
 
-RUN = {"fft": RUN_FFT, "rot_decomp": RUN_ROT, "mad": RUN_MAD}
-# the repository root, whose chip_smoke.py drives the paths of RUN_MAD
+RUN_PHASE = r'''
+import json, sys
+import torch
+sys.path.insert(0, ".")
+sys.path.append(sys.argv[2])  # the repository root: chip_smoke.py's timers' copies
+import chip_smoke as cs
+from spf_tpu_torch.ops import phase_rot
+from spf_tpu_torch.scripts import device_ms, probe_edges, profiled_kernels, step_microbench
+
+gen = torch.Generator(device="cuda").manual_seed(7)
+
+def same(a, b):
+    return all(torch.equal(x.view(torch.int32), y.view(torch.int32)) for x, y in zip(a, b))
+
+n = 2048
+k = n // 2
+res = {}
+for b in (256, 8):
+    t = probe_edges.exponents(n, b, gen)
+    for order, perm in (("scrambled", phase_rot.scrambled_perm(k)), ("natural", None)):
+        args = (t, n, perm)
+        ok = same(phase_rot.phase_minus_one(*args), phase_rot.phase_minus_one_plain(*args))
+        nbytes = 16 * k * b + 8 * b + 16 * 2 * n + 4 * k
+        ms, host_us = device_ms(phase_rot.phase_minus_one, cs.cold_copies(args, nbytes), 50)
+        res[f"K={k} B={b} {order}"] = dict(bitexact=ok, ms=ms, host_us=host_us)
+if sys.argv[1] == "check":
+    res["shapes"] = probe_edges.check_phase(gen)
+if "alone" not in sys.argv[3:]:
+    comps = step_microbench.components(256, torch.device("cuda"))
+    for name in ("pm1 doubling", "phase step (full)"):
+        fn = comps[name]
+        fn()
+        torch.cuda.synchronize()
+        by_name = profiled_kernels(lambda: [fn() for _ in range(step_microbench.ITERS)])
+        ms, launches = by_name.get(next((x for x in by_name if x.startswith("phase_kernel")),
+                                        ""), (0.0, 0))
+        res[name] = dict(device_us=1e3 * sum(v for v, _ in by_name.values())
+                         / step_microbench.ITERS,
+                         phase_kernel_us=1e3 * ms / launches if launches else None,
+                         launches=launches)
+print("RESULT " + json.dumps(res), flush=True)
+'''
+
+RUN_PROBE = r'''
+import json, sys
+import torch
+sys.path.insert(0, ".")
+sys.path.append(sys.argv[2])  # the repository root: chip_smoke.py's timers' copies
+import chip_smoke as cs
+from spf_tpu_torch.scripts import device_ms, probe_edges, vpu_probe
+
+gen = torch.Generator(device="cuda").manual_seed(7)
+x = vpu_probe.inputs("cuda")
+nbytes = 2 * 4 * vpu_probe.R * vpu_probe.C
+res = {}
+for name, kernel, plain, args in (
+        ("roll", vpu_probe.roll, vpu_probe.roll_plain, (x["roll"],)),
+        ("f32 mul chain", lambda v: vpu_probe.chain(v, "f32 mul chain"),
+         lambda v: vpu_probe.chain_plain(v, "f32 mul chain"), (x["f32"],)),
+        ("fma_probe", vpu_probe.fma_probe, vpu_probe.fma_probe_plain, (x["a"], x["b"]))):
+    ok = torch.equal(kernel(*args).view(torch.int32), plain(*args).view(torch.int32))
+    ms, host_us = device_ms(kernel, cs.cold_copies(args, nbytes), 50)
+    res[name] = dict(bitexact=ok, ms=ms, host_us=host_us)
+if sys.argv[1] == "check":
+    res["shapes"] = probe_edges.check_roll(gen)
+if "alone" not in sys.argv[3:]:
+    res["roll in vpu_probe"] = dict(ms=1e3 * vpu_probe.timed(lambda: vpu_probe.roll(x["roll"])))
+print("RESULT " + json.dumps(res), flush=True)
+'''
+
+RUN = {"fft": RUN_FFT, "rot_decomp": RUN_ROT, "mad": RUN_MAD, "phase": RUN_PHASE,
+       "probe": RUN_PROBE}
+# the repository root, whose chip_smoke.py drives the paths of RUN_MAD (and
+# gives RUN_PHASE and RUN_PROBE their cold copies)
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 BUILD = ("import sys; sys.path.insert(0, '.'); from spf_tpu_torch.kernels import build; "
          "build.build((sys.argv[1],))")

@@ -154,8 +154,9 @@ def roll_plain(x: torch.Tensor, iters: int = ITERS, shift: int = ROLL_SHIFT) -> 
 def _roll_cuda(x, iters, shift):
     x = x.contiguous()
     check_cuda("roll", x)
-    if x.dim() != 2 or not 1 <= x.shape[0] <= 1536:
-        raise ValueError(f"roll: shape {tuple(x.shape)}, want [rows <= 1536, cols]")
+    if x.dim() != 2 or x.numel() == 0 or max(x.shape) >= 1 << 31 or not 0 <= iters < 1 << 31:
+        raise ValueError(f"roll: shape {tuple(x.shape)}, iters {iters}: want [rows, cols], "
+                         "each and iters below 2^31")
     out = torch.empty_like(x)
     kernels.ROLL(x.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1], shift % x.shape[0],
                  iters, stream_of(x))
