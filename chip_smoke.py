@@ -12,9 +12,11 @@ Phases, each printing one JSON line with its seconds:
    `spf_tpu_torch.scripts.steps_per_clock`);
 2. build: every CUDA kernel from csrc/, one nvcc each, all in parallel;
    each source's registers and spills, and the opcodes of each chain
-   probe kernel, the roll kernel, the MAD and the R = 8 FFT kernels
-   (cuobjdump -sass; fails unless the roll's loop shows at least
-   ROLL_CHAINS x ROLL_UNROLL FADDs, `csrc/probe.cu`);
+   probe kernel, the roll kernel, both fma_probe kernels, the MAD and the
+   R = 8 FFT kernels (cuobjdump -sass; fails unless the roll's loop shows
+   at least ROLL_CHAINS x ROLL_UNROLL FADDs, `fma_probe_kernel` no FFMA and
+   `fma_probe_fma_kernel` one for each of a thread's FMA_ELEMS elements,
+   `csrc/probe.cu`);
 3. each kernel against its plain PyTorch version on the card, at the
    DEFAULT_128 shapes of the paths below (bit for bit; the rotation
    kernels also at B = 64 and at every N of ROT_NS with every B of ROT_BS,
@@ -46,7 +48,10 @@ Phases, each printing one JSON line with its seconds:
    `roll` also at the edge shapes of `spf_tpu_torch.scripts.probe_edges`
    (K = 2-2048 x B = 1, 8, 33, 256 in both orders; ragged rows and
    columns, shift 0, rows - 1 and negative, iters 0, 1, 7, 9, 15 and 17,
-   iters x shift beyond 2^31, 4099 rows);
+   iters x shift beyond 2^31, 4099 rows), and both `fma_probe` entry
+   points at its sizes 1-4097, [1024, 512] and 3 past it, with a, b and e
+   at every offset within 16 bytes, on ±0, ±inf, NaN, subnormals and
+   products that overflow or underflow (NaN equal to NaN);
 4. small runs on the card (kernels) and on the CPU (plain versions),
    bit-identical outputs: a multi-bit PBS (N = 256, n0 = 32, g = 3,
    B = 8), the single-bit PBS in its three forms (N = 256, n0 = 16) and
@@ -109,7 +114,17 @@ Phases, each printing one JSON line with its seconds:
    keygen and set-up seconds (the set-up also again, warm), the median
    latency of 3 synchronised runs,
    one profiled run (device ms, busy share), the worst output-bit margin;
-12. the probes, as one path with the launch counts read around it: the
+12. path 9, on path 8's keys at DEFAULT_128 (`spf_tpu_torch.ops.u64.pfks`,
+   `runtime.recryption`; c128, every port kernel's launch count 0 around
+   each call): the CBS-PFKS keys and a bootstrap key at `pbs_radix` made
+   on the card (seconds), circuit bootstrapping v1 via PFKS of 8
+   encrypted bits (4 of each value) in one call, a CMux of two L1 GLWEs
+   through each GGSW decrypted on the host (every coefficient selected
+   right, worst margin >= 2 bits), one more call's latency; the private
+   (identity map) and public functional keyswitch from an L1 LWE of
+   dimension k·N to the L1 GLWE, decrypting right (margin >= 2 bits); the
+   one-time pad round trip, exact (`phase_pfks`);
+13. the probes, as one path with the launch counts read around it: the
    entry points `spf_tpu_torch.scripts.step_microbench`, `gap_probe2` and
    `vpu_probe` through their main() (their lines are printed as they
    come): exactly ITERS launches of `phase_minus_one` in each pm1
@@ -671,9 +686,13 @@ def phase_and_probe_cases(gen, hw) -> list:
     fma = dict(source="spf_tpu_torch/csrc/probe.cu", replaces="scripts/vpu_probe.py:94",
                row="fma_probe", args=(x["a"], x["b"]), nbytes=3 * 4 * elems, ops=3 * elems,
                note="timed: a*b - p as written (0 everywhere); `parts`: also the "
-                    "__fmaf_rn(a, b, -p) entry point, held against the exact f64 error")
+                    "__fmaf_rn(a, b, -p) entry point, held against the exact f64 error; "
+                    "edge_shapes: scripts.probe_edges.check_fma (n 1-4097, [1024, 512] and 3 "
+                    "past it, a, b and e at every offset within 16 bytes, ±0, ±inf, NaN, "
+                    "subnormals, products that overflow and underflow; both entry points)")
     cases.append(dict(fma, name="fma_probe", kernel=vpu_probe.fma_probe,
-                      plain=vpu_probe.fma_probe_plain))
+                      plain=vpu_probe.fma_probe_plain,
+                      edge_check=lambda: probe_edges.check_fma(gen)))
     cases.append(dict(fma, name="fma_probe_fma", kernel=vpu_probe.fma_probe_fma,
                       plain=vpu_probe.fma_probe_fma_plain))
     cases.append(dict(
@@ -1769,7 +1788,158 @@ def phase_u64_api(hw):
                         f"want {want}, worst margin {min(cpu_margins):.2f}")
     if failures:
         raise AssertionError(f"path 8 (u64 API): {failures}")
-    return {"u64 quick start": launches, "u64 cpu": cpu_launches}
+    return {"u64 quick start": launches, "u64 cpu": cpu_launches}, (sk, pk, ev)
+
+
+PFKS_SEED = 20261018
+PFKS_BITS = (0, 1, 1, 0, 1, 0, 0, 1)  # 8 encrypted bits, 4 of each value
+PFKS_MSGS = (0, 1, 2, 3)  # the private keyswitch's 2-bit messages; the public one takes 3
+MIN_PFKS_MARGIN_BITS = 2.0
+
+
+def host_margins(ct, glwe_sk: np.ndarray, glwe, want: np.ndarray, plain_bits: int):
+    """A GLWE int64 [k+1, N] decrypted on the host: (decoded plaintext
+    bits [N], worst margin: bits between the largest phase error and the
+    decision boundary 2^(63 - plain_bits), against the expected `want`)."""
+    from spf_tpu_torch.ops import torus
+    from spf_tpu_torch.utils import host_crypto as hc
+
+    phase = hc.decrypt_glwe_np(torus.to_u64_np(ct), glwe_sk, glwe)
+    shift = np.uint64(64 - plain_bits)
+    got = ((phase + (np.uint64(1) << (shift - np.uint64(1)))) >> shift).astype(np.int64)
+    err = (phase - (want.astype(np.uint64) << shift)).astype(np.int64)
+    worst = max(int(np.abs(err.astype(np.float64)).max()), 1)
+    return got % (1 << plain_bits), 63 - plain_bits - float(np.log2(worst))
+
+
+def phase_pfks(hw, sk, pk, ev):
+    """Path 9: circuit bootstrapping v1 through the private functional
+    keyswitch (`ops.u64.pfks`), the public functional keyswitch and the
+    one-time pad (`runtime.recryption`) at DEFAULT_128 on path 8's keys
+    (the c128 backend: torch.fft and elementwise PyTorch, so every port
+    kernel's launch count stays 0, read around each call). The CBS-PFKS
+    keys (k + 1 = 2 keys of [1, 2049, 2, 2, 2048] int64) and a bootstrap
+    key at `pbs_radix` made on the card (seconds printed); CBS v1 of
+    PFKS_BITS in one batched call with `pbs_radix`, `cbs_radix` and
+    `pfks_radix`; a CMux of two L1 GLWEs of complementary random bits
+    through each GGSW, decrypted on the host: every coefficient the GLWE
+    its bit selects, worst margin >= 2 bits; the latency of one more
+    synchronised CBS-PFKS call. Then the private keyswitch (the CBS key's
+    identity-map row k) of four L1 LWEs (dimension k·N) of 2-bit messages in
+    one call and the public keyswitch (its key made on the card, identity
+    map) of one, each decrypting right with a margin >= 2 bits, and the
+    one-time pad round trip (pad, packed public encryption, recrypt,
+    decrypt, pad removed) exact. Raises on any failure."""
+    from spf_tpu_torch.ops.u64 import encryption as enc
+    from spf_tpu_torch.ops.u64 import fft_ops, pfks
+    from spf_tpu_torch.ops.u64 import torus as t64
+    from spf_tpu_torch.params import DEFAULT_128
+    from spf_tpu_torch.runtime import (decrypt_one_time_pad, generate_one_time_pad,
+                                       recrypt_one_time_pad)
+
+    p = DEFAULT_128
+    glwe, lwe0 = p.l1_params, p.l0_params
+    from_lwe = glwe.as_lwe_def()
+    n = glwe.degree
+    gen = torch.Generator(device="cuda").manual_seed(PFKS_SEED)
+    glwe_sk = sk.glwe_1.cpu().numpy().astype(np.uint64)
+    failures = []
+
+    def keygen(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    cbs_keys, cbs_keygen_s = keygen(lambda: pfks.generate_cbs_pfks_keys(
+        gen, sk.lwe_1, sk.glwe_1, from_lwe, glwe, p.pfks_radix))
+    bsk, bsk_keygen_s = keygen(lambda: pfks.generate_bootstrap_key(
+        gen, sk.lwe_0, sk.glwe_1, lwe0, glwe, p.pbs_radix))
+    bits = torch.tensor(PFKS_BITS, device="cuda")
+    ct = ev.enc.encrypt_lwe_l0(gen, bits, sk)
+
+    def cbs():
+        return pfks.circuit_bootstrap_via_pfks(ct, bsk, cbs_keys, lwe0, glwe, glwe, p.pbs_radix,
+                                               p.cbs_radix, p.pfks_radix)
+
+    ggsw, first_s, launches, peak_gib = drive(cbs, expect_launches(), "path 9 (CBS via PFKS)")
+    m0 = torch.randint(0, 2, (n,), generator=gen, device="cuda")
+    d0, d1 = (ev.enc.encrypt_glwe_l1(gen, m, sk) for m in (m0, 1 - m0))
+    sel, _, cmux_launches, _ = drive(
+        lambda: fft_ops.cmux(d0, d1, fft_ops.ggsw_to_fft(ggsw), glwe, p.cbs_radix),
+        expect_launches(), "path 9 (CMux)")
+    selected, margins = 0, []
+    for b, bit in enumerate(PFKS_BITS):
+        want = (m0 if bit == 0 else 1 - m0).cpu().numpy()
+        got, margin = host_margins(sel[b], glwe_sk, glwe, want, 1)
+        selected += bool((got == want).all())
+        margins.append(margin)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cbs()
+    torch.cuda.synchronize()
+    latency_s = time.perf_counter() - t0
+    if selected != len(PFKS_BITS) or min(margins) < MIN_PFKS_MARGIN_BITS:
+        failures.append(f"CBS via PFKS: {selected}/{len(PFKS_BITS)} selected right, worst "
+                        f"margin {min(margins):.2f}")
+    emit(dict(phase="pfks", path="CBS v1 via PFKS", params="DEFAULT_128",
+              card=hw["nvidia_smi"], bits=len(PFKS_BITS),
+              cbs_pfks_key_shape=list(cbs_keys.shape), cbs_pfks_keygen_s=cbs_keygen_s,
+              pbs_bsk_keygen_s=bsk_keygen_s, first_call_s=first_s, latency_s=latency_s,
+              selected=f"{selected}/{len(PFKS_BITS)}", noise_margin_bits_worst=min(margins),
+              noise_margin_bits_median=float(np.median(margins)),
+              port_kernel_launches={k: v for k, v in launches.items() if v},
+              peak_device_mem_gib=peak_gib))
+
+    msgs = torch.tensor(PFKS_MSGS, device="cuda")
+    lwes = enc.encrypt_lwe(gen, t64.encode(msgs, 2), sk.lwe_1, from_lwe)  # [4, k*N+1]
+    out, priv_s, priv_launches, _ = drive(
+        lambda: pfks.private_functional_keyswitch(lwes[:, None, :], cbs_keys[glwe.size],
+                                                  from_lwe, glwe, p.pfks_radix),
+        expect_launches(), "path 9 (private keyswitch)")
+    priv = [host_margins(out[i], glwe_sk, glwe, np.eye(1, n, dtype=np.int64)[0] * m, 2)
+            for i, m in enumerate(PFKS_MSGS)]
+    priv_ok = all(int(g[0]) == m and not g[1:].any() for (g, _), m in zip(priv, PFKS_MSGS))
+    pufksk, pub_keygen_s = keygen(lambda: pfks.generate_public_functional_keyswitch_key(
+        gen, sk.lwe_1, sk.glwe_1, from_lwe, glwe, p.pfks_radix))
+    out, pub_s, pub_launches, _ = drive(
+        lambda: pfks.public_functional_keyswitch(lwes[3][None, :], pufksk,
+                                                 lambda s: pfks.constant_map(s, n), from_lwe,
+                                                 glwe, p.pfks_radix),
+        expect_launches(), "path 9 (public keyswitch)")
+    del pufksk
+    pub_got, pub_margin = host_margins(out, glwe_sk, glwe, np.eye(1, n, dtype=np.int64)[0] * 3, 2)
+    pub_ok = int(pub_got[0]) == 3 and not pub_got[1:].any()
+    priv_margin = min(m for _, m in priv)
+    if not priv_ok or priv_margin < MIN_PFKS_MARGIN_BITS:
+        failures.append(f"private keyswitch: right {priv_ok}, worst margin {priv_margin:.2f}")
+    if not pub_ok or pub_margin < MIN_PFKS_MARGIN_BITS:
+        failures.append(f"public keyswitch: right {pub_ok}, margin {pub_margin:.2f}")
+
+    packed = torch.randint(0, 2, (n,), generator=gen, device="cuda")
+
+    def otp():
+        public, secret = generate_one_time_pad(gen, ev.enc, pk)
+        recrypted = recrypt_one_time_pad(ev.enc.encrypt_packed_public(gen, packed, pk), public)
+        padded = ev.enc.decrypt_glwe_l1(recrypted, sk)
+        return padded, secret, decrypt_one_time_pad(padded, secret)
+
+    (padded, secret, recovered), otp_s, otp_launches, _ = drive(
+        otp, expect_launches(), "path 9 (one-time pad)")
+    otp_ok = torch.equal(recovered, packed) and torch.equal(padded, packed ^ secret.key)
+    if not otp_ok:
+        failures.append("one-time pad: the round trip did not give the bits back")
+    emit(dict(phase="pfks", path="functional keyswitches and one-time pad", card=hw["nvidia_smi"],
+              private_keyswitch=dict(messages=list(PFKS_MSGS), right=priv_ok,
+                                     noise_margin_bits_worst=priv_margin, call_s=priv_s),
+              public_keyswitch=dict(message=3, right=pub_ok, noise_margin_bits=pub_margin,
+                                    keygen_s=pub_keygen_s, call_s=pub_s),
+              one_time_pad=dict(bits=n, exact=otp_ok, call_s=otp_s)))
+    if failures:
+        raise AssertionError(f"path 9 (PFKS, CBS v1, one-time pad): {failures}")
+    return {"pfks cbs": launches, "pfks cmux": cmux_launches, "pfks private": priv_launches,
+            "pfks public": pub_launches, "one-time pad": otp_launches}
 
 
 def cycle_breakdown(cycle, ct) -> dict:
@@ -1887,6 +2057,25 @@ def check_roll_sass(hist: dict) -> None:
                              f">= {want}")
 
 
+def check_fma_sass(hist: dict) -> None:
+    """`fma_probe_kernel` (as written) has no FFMA; `fma_probe_fma_kernel`
+    one for each of the FMA_ELEMS elements a thread handles
+    (`csrc/probe.cu`): a contracted product, or a result computed twice, would
+    show there."""
+    from spf_tpu_torch.kernels import build as kbuild
+
+    with open(os.path.join(kbuild.CSRC, "probe.cu")) as fh:
+        src = fh.read()
+    elems = 4 * int(re.search(r"constexpr int FMA_VEC = (\d+);", src).group(1))
+    if "cuobjdump" in hist:
+        raise AssertionError(f"fma_probe: no SASS to count ({hist})")
+    ffma = {("fused" if "fma_probe_fma_kernel" in name else "as written"): ops.get("FFMA", 0)
+            for name, ops in hist.items()}
+    if ffma != {"as written": 0, "fused": elems}:
+        raise AssertionError(f"fma_probe: FFMAs {ffma} in the SASS, want as written 0, "
+                             f"fused {elems}")
+
+
 def timed(name: str, fn):
     t0 = time.perf_counter()
     out = fn()
@@ -1913,13 +2102,15 @@ def main() -> int:
         with open(f"{kbuild.BUILD_DIR}/{name}.log", errors="replace") as fh:
             ptxas[name] = [ln.strip() for ln in fh if "registers" in ln or "spill" in ln]
     roll_sass = sass_histogram(kbuild.library_path("probe"), "roll_kernel")
+    fma_sass = sass_histogram(kbuild.library_path("probe"), "fma_probe")
     emit(dict(phase="build", seconds=time.perf_counter() - t0, per_source_s=per_source,
               ptxas=ptxas,
               chain_sass_opcodes=sass_histogram(kbuild.library_path("probe"), "chain_kernel"),
-              roll_sass_opcodes=roll_sass,
+              roll_sass_opcodes=roll_sass, fma_sass_opcodes=fma_sass,
               mad_sass_opcodes=sass_histogram(kbuild.library_path("mad"), "mad_horner_kernel"),
               fft_sass_opcodes=sass_histogram(kbuild.library_path("fft"), "ds_kernelILi8E")))
     check_roll_sass(roll_sass)
+    check_fma_sass(fma_sass)
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     results = timed("kernels_vs_plain", lambda: phase_kernels(gen, hw))
@@ -1939,7 +2130,10 @@ def main() -> int:
     by_path.update(timed("intop", lambda: phase_intop(keys)))
     by_path.update(timed("cpu", lambda: phase_cpu(keys)))
     del keys
-    by_path.update(timed("u64_api", lambda: phase_u64_api(hw)))
+    u64_launches, u64_keys = timed("u64_api", lambda: phase_u64_api(hw))
+    by_path.update(u64_launches)
+    by_path.update(timed("pfks", lambda: phase_pfks(hw, *u64_keys)))
+    del u64_keys
     probes, opaque_launches = timed("probes", phase_probes)
     by_path.update(probes)
     for r in results:

@@ -147,6 +147,26 @@ def compute_key(ck, device="cuda"):
                          for f in ("bsk", "ksk", "auto_keys", "ssk")})
 
 
+# the rank of each functional keyswitch key (`spf_tpu.ops.pfks`)
+FKS_KEY_RANKS = {
+    "private": 5,  # [lwe_count, n_from+1, count, k+1, N]
+    "public": 4,  # [n_from, count, k+1, N]
+    "cbs_pfks": 6,  # [k+1, 1, n_from+1, count, k+1, N]
+}
+
+
+def functional_keyswitch_key(key, kind: str, device="cuda") -> torch.Tensor:
+    """A u64 functional keyswitch key of the JAX package (`kind`: "private",
+    "public" or "cbs_pfks", as `FKS_KEY_RANKS`) -> int64 tensor with the
+    same bits on `device`, for `ops.u64.pfks`. Raises on a spectrum or a
+    key of another rank."""
+    key = np.asarray(key)
+    if key.dtype != np.uint64 or key.ndim != FKS_KEY_RANKS[kind]:
+        raise ValueError(f"functional_keyswitch_key: {kind} key {key.dtype} {key.shape}, want "
+                         f"uint64 of rank {FKS_KEY_RANKS[kind]}")
+    return to_tensor(key, device)
+
+
 def key_arrays(key) -> dict:
     """A port key -> {field: numpy array} in the JAX package's dtypes (u64
     for torus and key bits, complex128 for spectra); derived fields such as

@@ -17,7 +17,9 @@
 // take them (spf_tpu_torch/scripts/__init__.py, steps_per_clock): a 1-op f32
 // chain at [1024, 512], 400 steps, is 2.1e8 operations at 128 a clock per SM,
 // ~6.3 us at 132 SMs and ~1.98 GHz, against ~1.25 us for its 4 MiB of device
-// memory traffic. fma_probe moves 6 MiB: ~1.9 us.
+// memory traffic. fma_probe moves 6 MiB: ~1.9 us; a copy with its traffic
+// and no arithmetic takes ~4.6 us on the grid below (kernel_ab's floor
+// copies): at this size a launch's ramp and drain, not its bytes, set it.
 //
 // Design. chain: one thread per element, its value in a register for all
 // steps. The f32 constants are the f32 roundings of the script's Python
@@ -31,7 +33,18 @@
 // into v + 1200) or merge two ops into one instruction; chip_smoke.py's
 // build phase counts each chain kernel's SASS opcodes.
 // fma_probe: two entry points, `a*b - p` as written (0 under -fmad=false)
-// and __fmaf_rn(a, b, -p) (the exact error term).
+// and __fmaf_rn(a, b, -p) (the exact error term). Each byte is used once,
+// so the kernel is a stream: FMA_VEC 16-byte vectors of each operand a
+// thread (a warp's loads whole 128-byte lines), every load issued before the
+// first result, loads and stores with the streaming hint. A torch view can
+// start at any 4-byte offset: where a, b and e share their offset from a
+// 16-byte boundary the wrapper splits off a scalar head of up to 3 elements
+// and a tail of fewer than 4, and the body runs in vectors; where they
+// differ every element takes the scalar path of the same kernel (blocks of
+// their own, FMA_ELEMS elements a thread). 2 vectors a thread timed within
+// 1% of the floor copy; 1, or 4 in 128-thread blocks, as fast aligned but
+// 2-6% slower on the scalar path; plain loads and stores 8% slower; one
+// wave walking the chunks grid-stride 4% slower (PERF.md).
 // roll: a roll only permutes, and every element takes the same `iters` adds
 // of 1.0f in the same order wherever it sits, so out[r, c] is
 // x[(r − iters·shift) mod rows, c] followed by those adds: the roll is
@@ -148,20 +161,110 @@ int launch_chain(const uint32_t* x, uint32_t* out, int n, int iters, cudaStream_
   return spf_last_error();
 }
 
-__global__ void fma_probe_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                                 float* __restrict__ e, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const float p = a[i] * b[i];
-  e[i] = a[i] * b[i] - p;
+constexpr int FMA_THREADS = 256;
+constexpr int FMA_VEC = 2;                     // 16-byte vectors a thread, of each operand
+constexpr int FMA_ELEMS = 4 * FMA_VEC;         // elements a thread
+
+// e = a*b - p with p = a*b: as written (FUSED false: a product and a
+// subtraction, each rounded) or fma(a, b, -p) (FUSED true).
+template <bool FUSED>
+__device__ __forceinline__ float fma_error(float a, float b) {
+  const float p = a * b;
+  if constexpr (FUSED) return __fmaf_rn(a, b, -p);
+  else return a * b - p;
 }
 
-__global__ void fma_probe_fma_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                                     float* __restrict__ e, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const float p = a[i] * b[i];
-  e[i] = __fmaf_rn(a[i], b[i], -p);
+// The n elements split as the wrapper chose: a scalar head [0, head), a
+// body of nvec 16-byte vectors from `head` (a + head, b + head and e + head
+// 16-byte aligned), a scalar tail [head + 4·nvec, n). Blocks below
+// vec_blocks take FMA_VEC vectors a thread, FMA_THREADS apart; the blocks
+// after them the s = n − 4·nvec scalar elements (head, then tail),
+// FMA_ELEMS a thread, FMA_THREADS apart. A block is one path or the other,
+// so a warp never diverges on it. Each thread issues all its loads, then
+// its FMA_ELEMS results, then its stores; every load and store streams
+// (each byte is used once).
+template <bool FUSED>
+__device__ __forceinline__ void fma_probe_run(const float* __restrict__ a,
+                                              const float* __restrict__ b, float* __restrict__ e,
+                                              int n, int head, int nvec, int vec_blocks) {
+  float x[FMA_ELEMS], y[FMA_ELEMS], r[FMA_ELEMS];
+  const bool vec = (int)blockIdx.x < vec_blocks;
+  const long long tail = (long long)head + 4LL * nvec;
+  if (vec) {
+    const long long base = (long long)blockIdx.x * (FMA_THREADS * FMA_VEC) + threadIdx.x;
+    const float4* a4 = reinterpret_cast<const float4*>(a + head);
+    const float4* b4 = reinterpret_cast<const float4*>(b + head);
+#pragma unroll
+    for (int i = 0; i < FMA_VEC; ++i) {
+      const long long v = base + i * FMA_THREADS;
+      const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      const float4 p = v < nvec ? __ldcs(a4 + v) : zero;
+      const float4 q = v < nvec ? __ldcs(b4 + v) : zero;
+      x[4 * i] = p.x, x[4 * i + 1] = p.y, x[4 * i + 2] = p.z, x[4 * i + 3] = p.w;
+      y[4 * i] = q.x, y[4 * i + 1] = q.y, y[4 * i + 2] = q.z, y[4 * i + 3] = q.w;
+    }
+  } else {
+    const long long base =
+        (long long)(blockIdx.x - vec_blocks) * (FMA_THREADS * FMA_ELEMS) + threadIdx.x;
+    const long long s = n - 4LL * nvec;
+#pragma unroll
+    for (int i = 0; i < FMA_ELEMS; ++i) {
+      const long long j = base + i * FMA_THREADS;
+      const long long el = j < head ? j : j - head + tail;
+      x[i] = j < s ? __ldcs(a + el) : 0.0f;
+      y[i] = j < s ? __ldcs(b + el) : 0.0f;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < FMA_ELEMS; ++i) r[i] = fma_error<FUSED>(x[i], y[i]);
+  if (vec) {
+    const long long base = (long long)blockIdx.x * (FMA_THREADS * FMA_VEC) + threadIdx.x;
+    float4* e4 = reinterpret_cast<float4*>(e + head);
+#pragma unroll
+    for (int i = 0; i < FMA_VEC; ++i) {
+      const long long v = base + i * FMA_THREADS;
+      if (v < nvec) __stcs(e4 + v, make_float4(r[4 * i], r[4 * i + 1], r[4 * i + 2], r[4 * i + 3]));
+    }
+  } else {
+    const long long base =
+        (long long)(blockIdx.x - vec_blocks) * (FMA_THREADS * FMA_ELEMS) + threadIdx.x;
+    const long long s = n - 4LL * nvec;
+#pragma unroll
+    for (int i = 0; i < FMA_ELEMS; ++i) {
+      const long long j = base + i * FMA_THREADS;
+      if (j < s) __stcs(e + (j < head ? j : j - head + tail), r[i]);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(FMA_THREADS)
+    fma_probe_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                     float* __restrict__ e, int n, int head, int nvec, int vec_blocks) {
+  fma_probe_run<false>(a, b, e, n, head, nvec, vec_blocks);
+}
+
+__global__ void __launch_bounds__(FMA_THREADS)
+    fma_probe_fma_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                         float* __restrict__ e, int n, int head, int nvec, int vec_blocks) {
+  fma_probe_run<true>(a, b, e, n, head, nvec, vec_blocks);
+}
+
+// The split's checks and the grid: vector blocks, then scalar blocks.
+template <bool FUSED>
+int launch_fma_probe(const float* a, const float* b, float* e, int n, int head, int nvec,
+                     cudaStream_t s) {
+  const long long body = 4LL * nvec;
+  if (n < 1 || head < 0 || nvec < 0 || head + body > n)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (nvec > 0 && ((reinterpret_cast<uintptr_t>(a + head) | reinterpret_cast<uintptr_t>(b + head) |
+                    reinterpret_cast<uintptr_t>(e + head)) & 15))
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  const long long vec_blocks = ((long long)nvec + FMA_THREADS * FMA_VEC - 1) / (FMA_THREADS * FMA_VEC);
+  const long long scalar_blocks = (n - body + FMA_THREADS * FMA_ELEMS - 1) / (FMA_THREADS * FMA_ELEMS);
+  auto kernel = FUSED ? fma_probe_fma_kernel : fma_probe_kernel;
+  kernel<<<(unsigned)(vec_blocks + scalar_blocks), FMA_THREADS, 0, s>>>(a, b, e, n, head, nvec,
+                                                                        (int)vec_blocks);
+  return spf_last_error();
 }
 
 constexpr int ROLL_THREADS = 256;
@@ -220,18 +323,19 @@ extern "C" int spf_chain(const void* x, void* out, int n, int iters, int body, v
   }
 }
 
-// e = a*b - p, p = a*b, as written: 0 without contraction
-extern "C" int spf_fma_probe(const float* a, const float* b, float* e, int n, void* stream) {
-  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
-  fma_probe_kernel<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(a, b, e, n);
-  return spf_last_error();
+// e = a*b - p, p = a*b, as written: 0 without contraction. n elements,
+// split by the wrapper (`vpu_probe.fma_split`): a scalar head of `head`,
+// nvec 16-byte vectors from a + head, b + head and e + head (all 16-byte
+// aligned), a scalar tail; head = n, nvec = 0 takes every element scalar.
+extern "C" int spf_fma_probe(const float* a, const float* b, float* e, int n, int head, int nvec,
+                             void* stream) {
+  return launch_fma_probe<false>(a, b, e, n, head, nvec, (cudaStream_t)stream);
 }
 
-// e = fma(a, b, -p), p = a*b: the exact error of the product
-extern "C" int spf_fma_probe_fma(const float* a, const float* b, float* e, int n, void* stream) {
-  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
-  fma_probe_fma_kernel<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(a, b, e, n);
-  return spf_last_error();
+// e = fma(a, b, -p), p = a*b: the exact error of the product; split as above
+extern "C" int spf_fma_probe_fma(const float* a, const float* b, float* e, int n, int head,
+                                 int nvec, void* stream) {
+  return launch_fma_probe<true>(a, b, e, n, head, nvec, (cudaStream_t)stream);
 }
 
 // x, out f32 [rows, cols]; out = `iters` steps of roll(v, shift, 0) + 1.0,

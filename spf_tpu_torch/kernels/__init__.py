@@ -14,28 +14,37 @@ the circuit executors)."""
 
 from .build import Kernel
 
-# argspec: "p" a pointer or the stream (c_void_p), "i" a C int
-ACCUMULATE_DECOMPOSE = Kernel("rot_decomp", "spf_accumulate_decompose", "pppppiiip")
-ROTATE_SUB_DECOMPOSE = Kernel("rot_decomp", "spf_rotate_sub_decompose", "pppiiiiip")
+# argspec: "p" a pointer or the stream (c_void_p), "i" a C int; then the
+# device functions a launch runs (counts that share a function share one
+# tuple: `scripts.time_calls` holds a profile's events of each tuple
+# against the launches counted)
+ACCUMULATE_DECOMPOSE = Kernel("rot_decomp", "spf_accumulate_decompose", "pppppiiip",
+                              ("accumulate_decompose_kernel",))
+_ROTATE = ("rotate_sub_decompose_kernel",)
+ROTATE_SUB_DECOMPOSE = Kernel("rot_decomp", "spf_rotate_sub_decompose", "pppiiiiip", _ROTATE)
 ROTATE_SUB_DECOMPOSE_ACC = Kernel("rot_decomp", "spf_rotate_sub_decompose_acc",
-                                  "pppppp" + "iiiii" + "p")
-FWD_DS = Kernel("fft", "spf_fwd_ds", "ppppiiip")
-INV_DS = Kernel("fft", "spf_inv_ds", "ppppppiiip")
+                                  "pppppp" + "iiiii" + "p", _ROTATE)
+FWD_DS = Kernel("fft", "spf_fwd_ds", "ppppiiip", ("fwd_ds_kernel",))
+INV_DS = Kernel("fft", "spf_inv_ds", "ppppppiiip", ("inv_ds_kernel",))
 _MAD_ARGS = "p" * 20 + "iiiiii" + "p"
-MAD_HORNER = Kernel("mad", "spf_mad_horner", _MAD_ARGS)
-MAD_HORNER_G2 = Kernel("mad", "spf_mad_horner", _MAD_ARGS)
-MAD_HORNER_G1 = Kernel("mad", "spf_mad_horner", _MAD_ARGS)
-FREQ_MAD = Kernel("mad", "spf_mad_horner", _MAD_ARGS)
+_MAD = ("mad_horner_kernel",)
+MAD_HORNER = Kernel("mad", "spf_mad_horner", _MAD_ARGS, _MAD)
+MAD_HORNER_G2 = Kernel("mad", "spf_mad_horner", _MAD_ARGS, _MAD)
+MAD_HORNER_G1 = Kernel("mad", "spf_mad_horner", _MAD_ARGS, _MAD)
+FREQ_MAD = Kernel("mad", "spf_mad_horner", _MAD_ARGS, _MAD)
 MAD_BY_GROUP = {0: FREQ_MAD, 1: MAD_HORNER_G1, 2: MAD_HORNER_G2, 3: MAD_HORNER}
-MAD_ANY_KP1_BY_GROUP = {g: Kernel("mad", "spf_mad_horner", _MAD_ARGS) for g in range(4)}
-FREQ_MAD_BATCHED = Kernel("mad", "spf_freq_mad_batched", "p" * 13 + "iiiii" + "qqq" + "p")
-FENCE = Kernel("fence", "spf_fence", "ppip")
-PHASE_MINUS_ONE = Kernel("phase", "spf_phase_minus_one", "p" * 10 + "iip")
+MAD_ANY_KP1_BY_GROUP = {g: Kernel("mad", "spf_mad_horner", _MAD_ARGS,
+                                  ("mad_plane_kernel", "mad_planes_kernel"))
+                        for g in range(4)}
+FREQ_MAD_BATCHED = Kernel("mad", "spf_freq_mad_batched", "p" * 13 + "iiiii" + "qqq" + "p",
+                          ("mad_batched_kernel",))
+FENCE = Kernel("fence", "spf_fence", "ppip", ("copy_kernel",))
+PHASE_MINUS_ONE = Kernel("phase", "spf_phase_minus_one", "p" * 10 + "iip", ("phase_kernel",))
 # the probes of spf_tpu_torch.scripts.vpu_probe
-CHAIN = Kernel("probe", "spf_chain", "ppiiip")
-FMA_PROBE = Kernel("probe", "spf_fma_probe", "pppip")
-FMA_PROBE_FMA = Kernel("probe", "spf_fma_probe_fma", "pppip")
-ROLL = Kernel("probe", "spf_roll", "ppiiiip")
+CHAIN = Kernel("probe", "spf_chain", "ppiiip", ("chain_kernel",))
+FMA_PROBE = Kernel("probe", "spf_fma_probe", "pppiiip", ("fma_probe_kernel",))
+FMA_PROBE_FMA = Kernel("probe", "spf_fma_probe_fma", "pppiiip", ("fma_probe_fma_kernel",))
+ROLL = Kernel("probe", "spf_roll", "ppiiiip", ("roll_kernel",))
 
 ALL = {
     "accumulate_decompose": ACCUMULATE_DECOMPOSE,

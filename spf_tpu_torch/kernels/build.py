@@ -116,14 +116,18 @@ class Kernel:
     """One C entry point of a kernel library. Arguments are ints: a
     tensor's `data_ptr()` (or None for a null pointer) or the stream for
     each "p" of `argspec`, a C int for each "i", a C long long for each
-    "q". `launches` counts the successful launches."""
+    "q". `launches` counts the successful launches. `functions` names the
+    device functions a launch runs (a profile's kernel names without their
+    template arguments), which `scripts.time_calls` holds a profile's
+    events against."""
 
     _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "q": ctypes.c_longlong}
 
-    def __init__(self, lib: str, symbol: str, argspec: str):
+    def __init__(self, lib: str, symbol: str, argspec: str, functions: tuple):
         self.lib = lib
         self.symbol = symbol
         self.argtypes = [self._CTYPES[a] for a in argspec]
+        self.functions = functions
         self.launches = 0
         self._fn = None
 

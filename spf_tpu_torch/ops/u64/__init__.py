@@ -19,6 +19,7 @@ family lives here:
 - `automorphism`  ≙ `spf_tpu/ops/automorphism.py`
 - `bootstrap`     ≙ `spf_tpu/ops/bootstrap.py`
 - `cbs`           ≙ `spf_tpu/ops/cbs.py`
+- `pfks`          ≙ `spf_tpu/ops/pfks.py` (functional keyswitches, CBS v1)
 
 A torus element is one `torch.int64` whose bits are the u64's. Layouts
 are the reference's, with leading batch dims: LWE [..., n+1], GLWE

@@ -151,10 +151,44 @@ def profiled_device_ms(fn, top: int = 8):
     return sum(by_name.values()), dict(ranked)
 
 
+def per_call_device(by_name: dict, launches: dict, calls: int) -> dict:
+    """Device us per call of `calls` profiled calls (`profiled_kernels`'
+    {name: [ms, events]}), each port kernel's events held against the
+    launches that `kernels.launches()` counted for as many calls
+    (`launches`): a port kernel's time is the mean of the events the
+    profiler kept times the launches, so a dropped event does not read
+    low. Returns device_us, each port kernel's us a launch
+    (`kernel_us`, by device function) and, where fewer events came back
+    than launches, the shortfall (`events_short`). PyTorch's own kernels
+    are summed as kept: nothing counts their launches. Raises where the
+    profiler kept no event of a port kernel that launched."""
+    want = {}
+    for name, n in launches.items():
+        fns = kernels.ALL[name].functions
+        want[fns] = want.get(fns, 0) + n
+    port_ms, kernel_us, short, seen = 0.0, {}, {}, set()
+    for fns, n in want.items():
+        hits = {name: v for name, v in by_name.items() if name.split("<")[0] in fns}
+        seen.update(hits)
+        ms, kept = sum(v[0] for v in hits.values()), sum(v[1] for v in hits.values())
+        label = "/".join(fns)
+        if n and not kept:
+            raise RuntimeError(f"profiler kept no event of {label} ({n} launches)")
+        if kept < n:
+            short[label] = n - kept
+        if n:
+            port_ms += ms / kept * n
+            kernel_us[label] = 1e3 * ms / kept
+    other_ms = sum(v[0] for name, v in by_name.items() if name not in seen)
+    return dict(device_us=(port_ms + other_ms) * 1e3 / calls, kernel_us=kernel_us,
+                events_short=short)
+
+
 def time_calls(fn, calls: int) -> dict:
     """One warm-up call, then `calls` calls issued back to back and one
     synchronise: host us per call and the kernel launches of those calls;
-    then the device us per call of another `calls` calls (profiled)."""
+    then the device us per call of another `calls` calls (profiled, each
+    port kernel's events held against those launches: `per_call_device`)."""
     fn()
     torch.cuda.synchronize()
     before = kernels.launches()
@@ -164,5 +198,5 @@ def time_calls(fn, calls: int) -> dict:
     torch.cuda.synchronize()
     host_us = (time.perf_counter() - t0) / calls * 1e6
     launches = launches_since(before)
-    dev_ms = profiled_device_ms(lambda: [fn() for _ in range(calls)])[0]
-    return dict(host_us=host_us, device_us=dev_ms * 1e3 / calls, launches=launches)
+    by_name = profiled_kernels(lambda: [fn() for _ in range(calls)])
+    return dict(host_us=host_us, launches=launches, **per_call_device(by_name, launches, calls))

@@ -48,10 +48,17 @@ call, with inputs rotating past the L2; host us a call):
   components (ITERS calls each, at batch 256): the kernel's device us a
   launch there and the component's device us a call; `--alone` skips them.
 - `probe`: `roll` at [1024, 512], 400 steps of shift 8 (`vpu_probe`'s
-  shape), beside the f32 mul chain and `fma_probe` of the same source.
-  `--check DIR` also holds that copy's roll bit for bit at
-  `probe_edges.ROLL_CASES`. Each run also times the roll as `vpu_probe`
-  times it (one input, 5 calls, `vpu_probe.timed`); `--alone` skips that.
+  shape), beside the f32 mul chain and both `fma_probe` entry points of
+  the same source at [1024, 512] (also as written with a and b one element
+  past a 16-byte boundary: its scalar path), each cold copy sized by its
+  own bytes, and two floor copies with `fma_probe`'s traffic and no
+  arithmetic (`FLOOR_CU`, built once into the repository's `_build/`): on
+  the grid of one element a thread and on one of 2 16-byte vectors a
+  thread. `--check DIR` also holds that copy's roll bit for bit at
+  `probe_edges.ROLL_CASES` and both fma entry points at
+  `probe_edges.check_fma`'s sizes and offsets. Each run also times the
+  roll and both fma entry points as `vpu_probe` times them (one input, 5
+  calls, `vpu_probe.timed`); `--alone` skips that.
 
 The build's lines give each kernel's registers and spills (ptxas), the
 last line the card's name and power limit.
@@ -443,31 +450,130 @@ print("RESULT " + json.dumps(res), flush=True)
 '''
 
 RUN_PROBE = r'''
-import json, sys
+import ctypes, json, os, sys
 import torch
 sys.path.insert(0, ".")
 sys.path.append(sys.argv[2])  # the repository root: chip_smoke.py's timers' copies
 import chip_smoke as cs
+from spf_tpu_torch.kernels.build import stream_of
 from spf_tpu_torch.scripts import device_ms, probe_edges, vpu_probe
 
 gen = torch.Generator(device="cuda").manual_seed(7)
 x = vpu_probe.inputs("cuda")
-nbytes = 2 * 4 * vpu_probe.R * vpu_probe.C
+elems = vpu_probe.R * vpu_probe.C
+floor = ctypes.CDLL(os.path.join(sys.argv[2], "spf_tpu_torch", "_build", "libfma_floor.so"))
+floor.spf_fma_floor.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+
+def at_offset(t, offset):  # a copy of t `offset` elements past 16 bytes (any design's package)
+    buf = torch.empty((t.numel() + 4,), dtype=t.dtype, device=t.device)
+    view = buf[offset:offset + t.numel()].view(t.shape)
+    view.copy_(t)
+    return view
+
+def same(a, b):
+    return bool(((a.view(torch.int32) == b.view(torch.int32)) | (a.isnan() & b.isnan())).all())
+
+def floor_copy(vec):
+    def run(a, b):
+        e = torch.empty_like(a)
+        err = floor.spf_fma_floor(a.data_ptr(), b.data_ptr(), e.data_ptr(), a.numel(), vec,
+                                  stream_of(a))
+        if err:
+            raise RuntimeError(f"spf_fma_floor: CUDA error {err}")
+        return e
+    return run
+
+ab = (x["a"], x["b"])
+fma_bytes = 3 * 4 * elems
+# a and b one element past 16 bytes, e aligned: every element on the scalar
+# path (a clone would come back aligned, so the copies are made at the offset)
+offset_copies = [tuple(at_offset(t, 1) for t in ab)
+                 for _ in cs.cold_copies(ab, fma_bytes)]
 res = {}
-for name, kernel, plain, args in (
-        ("roll", vpu_probe.roll, vpu_probe.roll_plain, (x["roll"],)),
+for name, kernel, plain, args, nbytes in (
+        ("roll", vpu_probe.roll, vpu_probe.roll_plain, (x["roll"],), 2 * 4 * elems),
         ("f32 mul chain", lambda v: vpu_probe.chain(v, "f32 mul chain"),
-         lambda v: vpu_probe.chain_plain(v, "f32 mul chain"), (x["f32"],)),
-        ("fma_probe", vpu_probe.fma_probe, vpu_probe.fma_probe_plain, (x["a"], x["b"]))):
-    ok = torch.equal(kernel(*args).view(torch.int32), plain(*args).view(torch.int32))
-    ms, host_us = device_ms(kernel, cs.cold_copies(args, nbytes), 50)
+         lambda v: vpu_probe.chain_plain(v, "f32 mul chain"), (x["f32"],), 2 * 4 * elems),
+        ("fma_probe", vpu_probe.fma_probe, vpu_probe.fma_probe_plain, ab, fma_bytes),
+        ("fma_probe_fma", vpu_probe.fma_probe_fma, vpu_probe.fma_probe_fma_plain, ab, fma_bytes),
+        ("fma_probe a, b at +4 bytes", vpu_probe.fma_probe, vpu_probe.fma_probe_plain,
+         offset_copies[0], fma_bytes),
+        ("floor copy, an element a thread", floor_copy(0), None, ab, fma_bytes),
+        ("floor copy, 2 vectors a thread", floor_copy(1), None, ab, fma_bytes)):
+    ok = plain is None or same(kernel(*args), plain(*args))
+    copies = offset_copies if args is offset_copies[0] else cs.cold_copies(args, nbytes)
+    ms, host_us = device_ms(kernel, copies, 50)
     res[name] = dict(bitexact=ok, ms=ms, host_us=host_us)
 if sys.argv[1] == "check":
     res["shapes"] = probe_edges.check_roll(gen)
+    res["fma shapes"] = probe_edges.check_fma(gen)
 if "alone" not in sys.argv[3:]:
     res["roll in vpu_probe"] = dict(ms=1e3 * vpu_probe.timed(lambda: vpu_probe.roll(x["roll"])))
+    for name, fn in (("fma_probe", vpu_probe.fma_probe), ("fma_probe_fma", vpu_probe.fma_probe_fma)):
+        res[name + " in vpu_probe"] = dict(ms=1e3 * vpu_probe.timed(lambda: fn(*ab)))
 print("RESULT " + json.dumps(res), flush=True)
 '''
+
+# `fma_probe`'s traffic with no arithmetic: a and b read, e written (a
+# bitwise OR uses both), on the grid of one element a thread (256 threads
+# a block, plain loads) and on a grid of 2 16-byte vectors of each operand
+# a thread (256 threads, streaming loads and stores): the floor under a
+# kernel that moves those bytes so. Built once by `main` into the
+# repository's `_build/`, beside no design.
+FLOOR_CU = r'''
+#include <cuda_runtime.h>
+
+__global__ void floor_scalar(const unsigned* __restrict__ a, const unsigned* __restrict__ b,
+                             unsigned* __restrict__ e, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) e[i] = a[i] | b[i];
+}
+
+__global__ void floor_vec(const uint4* __restrict__ a, const uint4* __restrict__ b,
+                          uint4* __restrict__ e, int nvec) {
+  const int base = blockIdx.x * 512 + threadIdx.x;
+  uint4 x[2], y[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int v = base + i * 256;
+    if (v < nvec) x[i] = __ldcs(a + v), y[i] = __ldcs(b + v);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int v = base + i * 256;
+    if (v < nvec)
+      __stcs(e + v, make_uint4(x[i].x | y[i].x, x[i].y | y[i].y, x[i].z | y[i].z, x[i].w | y[i].w));
+  }
+}
+
+// n a multiple of 4 and the pointers 16-byte aligned where vec is set
+extern "C" int spf_fma_floor(const void* a, const void* b, void* e, int n, int vec,
+                             void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (vec)
+    floor_vec<<<(n / 4 + 511) / 512, 256, 0, s>>>((const uint4*)a, (const uint4*)b, (uint4*)e,
+                                                  n / 4);
+  else
+    floor_scalar<<<(n + 255) / 256, 256, 0, s>>>((const unsigned*)a, (const unsigned*)b,
+                                                 (unsigned*)e, n);
+  return (int)cudaGetLastError();
+}
+'''
+
+
+def build_floor() -> str:
+    """`FLOOR_CU` built into the repository's `_build/` (its library path)."""
+    from ..kernels import build as kbuild
+
+    os.makedirs(kbuild.BUILD_DIR, exist_ok=True)
+    src = os.path.join(kbuild.BUILD_DIR, "fma_floor.cu")
+    with open(src, "w") as fh:
+        fh.write(FLOOR_CU)
+    out = os.path.join(kbuild.BUILD_DIR, "libfma_floor.so")
+    subprocess.run([kbuild.nvcc_path(), *kbuild.NVCC_FLAGS, "-o", out, src], check=True,
+                   capture_output=True, timeout=600)
+    return out
+
 
 RUN = {"fft": RUN_FFT, "rot_decomp": RUN_ROT, "mad": RUN_MAD, "phase": RUN_PHASE,
        "probe": RUN_PROBE}
@@ -505,6 +611,8 @@ def main(argv=None) -> list:
             extra.append(flag[2:])
     dirs = args + ([check] if check else [])
     lines = []
+    if source == "probe":
+        lines.append(emit(dict(floor_library=build_floor())))
     procs = {d: subprocess.Popen([sys.executable, "-c", BUILD, source], cwd=d,
                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for d in dirs}

@@ -109,40 +109,69 @@ def chain(x: torch.Tensor, body: str, iters: int = ITERS) -> torch.Tensor:
     return dispatch("chain", x, _chain_cuda, chain_plain, x, body, iters)
 
 
-def fma_probe_plain(a, b):
+def _into(out, e):
+    if out is None:
+        return e
+    out.copy_(e)
+    return out
+
+
+def fma_probe_plain(a, b, out=None):
     p = a * b
-    return a * b - p
+    return _into(out, a * b - p)
 
 
-def fma_probe_fma_plain(a, b):
+def fma_probe_fma_plain(a, b, out=None):
     """The exact error of the product a·b: (f64(a)·f64(b) − f64(p)) in
-    f32, exact unless the error underflows."""
+    f32, rounded once (`fma`'s single rounding, subnormals included)."""
     p = a * b
-    return (a.double() * b.double() - p.double()).float()
+    return _into(out, (a.double() * b.double() - p.double()).float())
+
+
+FMA_VECTOR = 16  # bytes of the kernel's vector loads and stores
+
+
+def fma_split(ptr_a: int, ptr_b: int, ptr_e: int, n: int) -> tuple:
+    """How `fma_probe`'s kernel splits n f32 elements, from the three
+    addresses: (head, nvec). Where a, b and e sit at one offset from a
+    16-byte boundary, a scalar head of up to 3 elements brings them to it
+    and nvec 16-byte vectors follow (then a scalar tail of n − head −
+    4·nvec < 4); where their offsets differ, every element is scalar:
+    (n, 0)."""
+    offsets = {p % FMA_VECTOR for p in (ptr_a, ptr_b, ptr_e)}
+    if len(offsets) != 1:
+        return n, 0
+    head = min(n, (FMA_VECTOR - offsets.pop()) % FMA_VECTOR // 4)
+    return head, (n - head) // 4
 
 
 def _fma_cuda(kernel, name):
-    def run(a, b):
+    def run(a, b, out=None):
         a, b = a.contiguous(), b.contiguous()
-        check_cuda(name, a, b)
-        if a.shape != b.shape or a.numel() >= 1 << 31:
-            raise ValueError(f"{name}: shapes {tuple(a.shape)}, {tuple(b.shape)}")
-        e = torch.empty_like(a)
-        kernel(a.data_ptr(), b.data_ptr(), e.data_ptr(), a.numel(), stream_of(a))
+        e = torch.empty_like(a) if out is None else out
+        check_cuda(name, a, b, e)
+        if a.shape != b.shape or e.shape != a.shape or a.numel() >= 1 << 31:
+            raise ValueError(f"{name}: shapes {tuple(a.shape)}, {tuple(b.shape)}, "
+                             f"{tuple(e.shape)}")
+        n = a.numel()
+        kernel(a.data_ptr(), b.data_ptr(), e.data_ptr(), n,
+               *fma_split(a.data_ptr(), b.data_ptr(), e.data_ptr(), n), stream_of(a))
         return e
     return run
 
 
-def fma_probe(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a*b - p with p = a*b, as written (0 without FP contraction)."""
+def fma_probe(a: torch.Tensor, b: torch.Tensor, out=None) -> torch.Tensor:
+    """a*b - p with p = a*b, as written (0 without FP contraction), into
+    `out` if given (a contiguous f32 tensor of a's shape)."""
     return dispatch("fma_probe", a, _fma_cuda(kernels.FMA_PROBE, "fma_probe"),
-                    fma_probe_plain, a, b)
+                    fma_probe_plain, a, b, out)
 
 
-def fma_probe_fma(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """fma(a, b, -p) with p = a*b: the exact error of the product."""
+def fma_probe_fma(a: torch.Tensor, b: torch.Tensor, out=None) -> torch.Tensor:
+    """fma(a, b, -p) with p = a*b: the exact error of the product, into
+    `out` if given."""
     return dispatch("fma_probe_fma", a, _fma_cuda(kernels.FMA_PROBE_FMA, "fma_probe_fma"),
-                    fma_probe_fma_plain, a, b)
+                    fma_probe_fma_plain, a, b, out)
 
 
 def roll_plain(x: torch.Tensor, iters: int = ITERS, shift: int = ROLL_SHIFT) -> torch.Tensor:

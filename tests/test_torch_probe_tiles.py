@@ -20,7 +20,18 @@ version, bit for bit, at the edge shapes of
   B), seq[r] by r's set bits lowest first (a warp spans 32 / COLS low
   indices, whose chains take different bits at once), H = min(REG_LEVELS, log2 K)
   levels in registers (1 at B <= NARROW_B), bin m stored at row perm^-1[m]; every output
-  written once.
+  written once;
+- `fma_probe`: the wrapper's split (`vpu_probe.fma_split`) of n elements
+  into a scalar head, 16-byte vectors and a scalar tail, or every element
+  scalar, from the addresses of a, b and e, and the kernel's grid over it
+  (FMA_THREADS threads a block, FMA_VEC vectors a thread in the vector
+  blocks, 4·FMA_VEC scalars a thread in the blocks after them): every
+  element loaded and stored once, every vector 16-byte aligned in all
+  three operands, the plain versions under the split equal to the plain
+  versions, at every n and offset of `probe_edges.check_fma`.
+
+Also `scripts.per_call_device`, which reads a profile's device time per
+call from the events it kept.
 """
 
 import re
@@ -31,7 +42,7 @@ import pytest
 import torch
 
 from spf_tpu_torch.ops import ds, phase_rot
-from spf_tpu_torch.scripts import probe_edges, vpu_probe
+from spf_tpu_torch.scripts import per_call_device, probe_edges, vpu_probe
 
 torch.set_num_threads(1)
 
@@ -44,6 +55,7 @@ def _const(source, name):
 
 ROLL_THREADS, ROLL_CHAINS, ROLL_UNROLL = (
     _const("probe.cu", n) for n in ("ROLL_THREADS", "ROLL_CHAINS", "ROLL_UNROLL"))
+FMA_THREADS, FMA_VEC = (_const("probe.cu", n) for n in ("FMA_THREADS", "FMA_VEC"))
 THREADS, MIN_THREADS, MIN_BLOCKS, MAX_COLS, REG_LEVELS, NARROW_B, MAX_ENTRIES = (
     _const("phase.cu", n) for n in ("THREADS", "MIN_THREADS", "MIN_BLOCKS", "MAX_COLS",
                                     "REG_LEVELS", "NARROW_B", "MAX_ENTRIES"))
@@ -204,3 +216,102 @@ def test_phase_schedule_matches_plain(k, b, order):
     assert (written == 1).all(), "an output written by no thread or by two"
     for g, w in zip(got, phase_rot.phase_minus_one_plain(t, n, perm)):
         np.testing.assert_array_equal(g.numpy().view(np.int32), w.numpy().view(np.int32))
+
+
+def fma_schedule(n, head, nvec):
+    """`launch_fma_probe`'s grid over the split (head, nvec): the first
+    element of each live vector (a thread's FMA_VEC vectors FMA_THREADS
+    apart, in the first ceil(nvec / (FMA_THREADS·FMA_VEC)) blocks) and
+    each live scalar element (4·FMA_VEC a thread, FMA_THREADS apart, in
+    the blocks after them: the head, then the tail)."""
+    per_vec_block, per_scalar_block = FMA_THREADS * FMA_VEC, FMA_THREADS * 4 * FMA_VEC
+    vec_blocks = -(-nvec // per_vec_block)
+    s = n - 4 * nvec
+    scalar_blocks = -(-s // per_scalar_block)
+    tid = np.arange(FMA_THREADS)
+    v = (np.arange(vec_blocks)[:, None, None] * per_vec_block + tid[None, :, None]
+         + np.arange(FMA_VEC)[None, None, :] * FMA_THREADS).reshape(-1)
+    j = (np.arange(scalar_blocks)[:, None, None] * per_scalar_block + tid[None, :, None]
+         + np.arange(4 * FMA_VEC)[None, None, :] * FMA_THREADS).reshape(-1)
+    j = j[j < s]
+    return head + 4 * v[v < nvec], np.where(j < head, j, j - head + head + 4 * nvec)
+
+
+def _fma_ptrs(n, offsets):
+    """a, b and e as CPU views at the given element offsets past 16 bytes."""
+    views = []
+    for o in offsets:
+        buf = torch.empty(n + 4)
+        assert buf.data_ptr() % 16 == 0
+        views.append(buf[o:o + n])
+    return views
+
+
+@pytest.mark.parametrize("n", probe_edges.FMA_NS)
+def test_fma_split_covers_once_and_matches_plain(n):
+    gen = torch.Generator().manual_seed(n)
+    a0, b0 = probe_edges.fma_operands(gen, n)
+    want = [f(a0, b0) for f in (vpu_probe.fma_probe_plain, vpu_probe.fma_probe_fma_plain)]
+    for offsets in probe_edges.FMA_OFFSETS:
+        a, b, e = _fma_ptrs(n, offsets)
+        head, nvec = vpu_probe.fma_split(a.data_ptr(), b.data_ptr(), e.data_ptr(), n)
+        vec, scalar = fma_schedule(n, head, nvec)
+        elems = np.concatenate([(vec[:, None] + np.arange(4)).reshape(-1), scalar])
+        assert ((elems >= 0) & (elems < n)).all(), f"{offsets}: an element outside [0, n)"
+        assert (np.bincount(elems, minlength=n) == 1).all(), \
+            f"{offsets}: an element read and written by no thread or by two"
+        for x in (a, b, e):  # each vector 16-byte aligned in every operand
+            assert ((x.data_ptr() + 4 * vec) % 16 == 0).all(), f"{offsets}: a vector misaligned"
+        idx = torch.from_numpy(elems)
+        for plain, w in zip((vpu_probe.fma_probe_plain, vpu_probe.fma_probe_fma_plain), want):
+            got = torch.full((n,), float("nan"))
+            got[idx] = plain(a0[idx], b0[idx])
+            assert probe_edges.same_or_nan(got, w), f"{offsets}: not the plain version"
+
+
+@pytest.mark.parametrize("n", (1, 2, 3, 4, 5, 7, 4097))
+def test_fma_split_path_choice(n):
+    """Vectors where a, b and e share their offset from 16 bytes (a head
+    bringing them to it, at most 3, then as many whole vectors as fit),
+    every element scalar where they do not; the same from real views."""
+    for oa, ob, oe in probe_edges.FMA_OFFSETS:
+        head, nvec = vpu_probe.fma_split(64 + 4 * oa, 1024 + 4 * ob, 4096 + 4 * oe, n)
+        if oa == ob == oe:
+            want_head = min(n, (4 - oa) % 4)
+            assert (head, nvec) == (want_head, (n - want_head) // 4)
+            assert 0 <= n - head - 4 * nvec < 4
+        else:
+            assert (head, nvec) == (n, 0)
+        a, b, e = _fma_ptrs(n, (oa, ob, oe))
+        assert vpu_probe.fma_split(a.data_ptr(), b.data_ptr(), e.data_ptr(), n) == (head, nvec)
+
+
+def test_fma_wrapper_out_on_cpu():
+    """On CPU tensors the wrappers run their plain versions, into `out` if
+    given (the view check_fma writes through)."""
+    gen = torch.Generator().manual_seed(3)
+    a, b = probe_edges.fma_operands(gen, 129)
+    for kernel, plain in ((vpu_probe.fma_probe, vpu_probe.fma_probe_plain),
+                          (vpu_probe.fma_probe_fma, vpu_probe.fma_probe_fma_plain)):
+        out = probe_edges.at_offset(torch.zeros(129), 3)
+        got = kernel(a, b, out)
+        assert got.data_ptr() == out.data_ptr()
+        assert probe_edges.same_or_nan(got, plain(a, b))
+
+
+def test_per_call_device_counts_kept_events():
+    """A port kernel's time is the mean of the events kept times the
+    launches counted (a dropped event does not read low), its shortfall
+    reported; PyTorch's kernels are summed as kept."""
+    by_name = {"phase_kernel<2, 16>": [0.049 * 4.0, 49], "elementwise_kernel": [0.5, 10],
+               "mad_horner_kernel<2, 3>": [1.0, 50], "mad_horner_kernel<2, 2>": [1.0, 50]}
+    launches = {"phase_minus_one": 50, "mad_horner": 50, "mad_horner_g2": 50}
+    got = per_call_device(by_name, launches, 50)
+    assert got["events_short"] == {"phase_kernel": 1}
+    assert got["kernel_us"]["phase_kernel"] == pytest.approx(4.0)
+    assert got["kernel_us"]["mad_horner_kernel"] == pytest.approx(20.0)
+    assert got["device_us"] == pytest.approx((0.2 + 0.5 + 2.0) * 1e3 / 50)
+    full = per_call_device({**by_name, "phase_kernel<2, 16>": [0.2, 50]}, launches, 50)
+    assert full["events_short"] == {} and full["device_us"] == pytest.approx(got["device_us"])
+    with pytest.raises(RuntimeError):
+        per_call_device({}, {"roll": 1}, 1)
