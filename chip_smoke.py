@@ -124,7 +124,25 @@ Phases, each printing one JSON line with its seconds:
    (identity map) and public functional keyswitch from an L1 LWE of
    dimension k·N to the L1 GLWE, decrypting right (margin >= 2 bits); the
    one-time pad round trip, exact (`phase_pfks`);
-13. the probes, as one path with the launch counts read around it: the
+13. path 10, noise measurement (`spf_tpu_torch.utils.noise`; c128 and
+   host code, every port kernel's launch count 0 around each call):
+   `spf_tpu_torch.scripts.op_noise`'s four measurements at its own
+   PARAMS (keys on the card), each log2 std and max; at DEFAULT_128 on
+   path 8's keys the GLWE encryption, the LWE keyswitch, a chain of 8
+   CMuxes selecting 1 and a CMux behind a CBS, each log2 std beside the
+   parameters' sigma and `noise_exponent_at_depth`, each >= 2 bits below
+   the message's decision boundary; a serialization round trip
+   (`utils.serialization`) of path 8's keyswitch key, secret keys and a
+   ciphertext of each kind, byte-identical, with their sizes
+   (`phase_noise`);
+14. path 11, the ds32 backend of the u64 API (`ops.u64.fft_ds32`: plain
+   PyTorch f32 pairs, no port kernel, every launch count 0) in bench.py's
+   three ds32 op rows at DEFAULT_128 on inputs made from path 8's secret
+   key: a CMux of 256, a GLEV CMux of 64 and a scheme switch of 32 (its
+   GGSWs checked through a CMux), each decrypting right, its worst margin
+   and median rate over 3 calls beside the same op's on c128
+   (`phase_ds32`);
+15. the probes, as one path with the launch counts read around it: the
    entry points `spf_tpu_torch.scripts.step_microbench`, `gap_probe2` and
    `vpu_probe` through their main() (their lines are printed as they
    come): exactly ITERS launches of `phase_minus_one` in each pm1
@@ -1942,6 +1960,216 @@ def phase_pfks(hw, sk, pk, ev):
             "pfks public": pub_launches, "one-time pad": otp_launches}
 
 
+NOISE_SEED = 20261019
+NOISE_TRIALS = 2  # DEFAULT_128 trials a measurement (op_noise's own: 4)
+NOISE_DEPTH = 8
+MIN_NOISE_MARGIN_BITS = 2.0
+
+
+def noise_margin_bits(log2_max: float) -> float:
+    """Bits between the worst error and a 1-bit message's decision
+    boundary q/4 = 2^62 (the message bit is 2^63)."""
+    return 62.0 - log2_max
+
+
+def phase_noise(hw, sk, pk, ev):
+    """Path 10: empirical noise (`spf_tpu_torch.utils.noise`) on the card,
+    every port kernel's launch count held at 0 around each call (c128 and
+    host code only). op_noise's four measurements at its own PARAMS
+    (`spf_tpu_torch.scripts.op_noise.measure`, keys made on the card), each
+    log2 std and max; then at DEFAULT_128 on path 8's keys the GLWE
+    encryption, the L1 -> L0 LWE keyswitch, a chain of NOISE_DEPTH CMuxes
+    selecting 1 and a CMux behind a CBS, each log2 std beside the
+    parameters' sigma and the model's failure exponent
+    (`params.noise_exponent_at_depth`), each at least
+    MIN_NOISE_MARGIN_BITS below the message's decision boundary; then a
+    serialization round trip (`utils.serialization`) of path 8's
+    keyswitch key, secret keys and one ciphertext of each kind,
+    byte-identical, with their sizes. Raises on any failure."""
+    import math
+
+    from spf_tpu_torch.ops.u64 import encryption as enc
+    from spf_tpu_torch.ops.u64 import torus as t64
+    from spf_tpu_torch.params import DEFAULT_128, noise_exponent_at_depth
+    from spf_tpu_torch.scripts import op_noise
+    from spf_tpu_torch.utils import noise, serialization
+
+    p, dev = ev.params, ev.device  # DEFAULT_128 on the card
+    label = "DEFAULT_128" if p == DEFAULT_128 else repr(p)
+    glwe = p.l1_params
+    failures = []
+    rows, op_s, op_launches, _ = drive(
+        lambda: op_noise.measure(op_noise.PARAMS, depth=NOISE_DEPTH, trials=4, device=dev),
+        expect_launches(), "path 10 (op_noise)")
+    emit(dict(phase="noise", path="op_noise", params="op_noise.PARAMS", card=hw["nvidia_smi"],
+              seconds=op_s, rows={r["op"]: dict(samples=r["samples"], log2_std=r["log2_std"],
+                                                log2_max=r["log2_max"]) for r in rows}))
+    if any(noise_margin_bits(r["log2_max"]) < MIN_NOISE_MARGIN_BITS for r in rows):
+        failures.append(f"op_noise: {rows}")
+
+    gen = torch.Generator(device=dev).manual_seed(NOISE_SEED)
+    sigma = {"glwe_encryption": glwe.std, "keyswitch_l1_l0": p.l0_params.std}
+    measured, launches = {}, {}
+    for name, fn in (
+            ("encryption", lambda: [noise.measure_encryption_noise(gen, sk, p)]),
+            ("keyswitch", lambda: [noise.measure_keyswitch_noise(gen, sk, ev, p, 16)]),
+            ("cmux", lambda: noise.measure_cmux_noise(gen, sk, ev, p, NOISE_DEPTH, NOISE_TRIALS)),
+            ("cbs_then_cmux", lambda: [noise.measure_cbs_noise(gen, sk, ev, p, NOISE_TRIALS)])):
+        stats, seconds, launches[name], _ = drive(fn, expect_launches(), f"path 10 ({name})")
+        for st in stats:
+            depth = int(st.op.rsplit("_", 1)[1]) if st.op.startswith("cmux_depth_") else None
+            std = 2.0 ** (st.log2_std - 64)
+            measured[st.op] = dict(
+                samples=st.samples, log2_std=st.log2_std, log2_max=st.log2_max,
+                margin_bits=noise_margin_bits(st.log2_max), seconds=seconds,
+                log2_sigma=math.log2(sigma[st.op] * 2.0**64) if st.op in sigma else None,
+                log2_failure_probability=noise.log2_failure_probability_binary(std),
+                model_exponent_at_depth=noise_exponent_at_depth(depth) if depth else None)
+    emit(dict(phase="noise", path="DEFAULT_128 noise", params=label,
+              card=hw["nvidia_smi"], trials=NOISE_TRIALS, rows=measured))
+    low = {op: r["margin_bits"] for op, r in measured.items()
+           if r["margin_bits"] < MIN_NOISE_MARGIN_BITS}
+    if low:
+        failures.append(f"noise margins below {MIN_NOISE_MARGIN_BITS}: {low}")
+
+    def round_trip():
+        ones = torch.ones(glwe.degree, dtype=torch.int64, device=dev)
+        arrays = {"ksk": ev.ck.ksk, "lwe0_sk": sk.lwe_0, "glwe1_sk": sk.glwe_1,
+                  "lwe0": ev.enc.encrypt_lwe_l0(gen, 1, sk),
+                  "lwe1": enc.encrypt_lwe(gen, t64.encode(1, 1), sk.lwe_1, glwe.as_lwe_def()),
+                  "glwe1": ev.enc.encrypt_glwe_l1(gen, ones, sk),
+                  "glev1": ev.enc.encrypt_glev_l1(gen, ones, sk),
+                  "ggsw1": enc.encrypt_ggsw_scalar(gen, 1, sk.glwe_1, glwe, p.cbs_radix)}
+        out = {}
+        for kind, t in arrays.items():
+            t0 = time.perf_counter()
+            blob = serialization.serialize(kind, t, p)
+            back = serialization.deserialize(blob, kind, p, device=dev)
+            out[kind] = dict(shape=list(t.shape), array_bytes=t.numel() * 8,
+                             payload_bytes=len(blob), equal=bool(torch.equal(back, t.long())),
+                             seconds=time.perf_counter() - t0)
+        return out
+
+    sizes, ser_s, launches["serialization"], _ = drive(round_trip, expect_launches(),
+                                                       "path 10 (serialization)")
+    emit(dict(phase="noise", path="serialization round trip", params=label,
+              card=hw["nvidia_smi"], seconds=ser_s, kinds=sizes))
+    if not all(v["equal"] for v in sizes.values()):
+        failures.append(f"serialization: {sizes}")
+    if failures:
+        raise AssertionError(f"path 10 (noise): {failures}")
+    return {"noise op_noise": op_launches, **{f"noise {k}": v for k, v in launches.items()}}
+
+
+DS32_SEED = 20261020
+DS32_TIMED_CALLS = 3
+
+
+def phase0_margins(phase: torch.Tensor, want: torch.Tensor, scale_bits: int):
+    """Phases int64 [...] of messages `want` at scale 2^scale_bits: (all
+    decoded right, worst margin in bits to the decision boundary
+    2^(scale_bits - 1))."""
+    from spf_tpu_torch.ops.u64 import torus as t64
+
+    got = t64.decode(phase, 64 - scale_bits)
+    err = (phase - (want.long() << scale_bits)).double().abs().clamp(min=1.0)
+    return bool((got == want).all()), (scale_bits - 1) - float(torch.log2(err.max()))
+
+
+def phase_ds32(hw, sk, pk, ev):
+    """Path 11: the ds32 backend of the u64 API (`ops.u64.fft_ds32.DS32`,
+    plain PyTorch f32 pairs, no port kernel: every launch count held at 0
+    around each call) in bench.py's three ds32 op rows (`bench.py:1464-1529,
+    1554-1581`) at DEFAULT_128, on inputs made on the card from path 8's
+    secret key: a CMux of B = 256 (trivial 0 / trivial 2^63, GGSWs of
+    random bits), each decrypting at coefficient 0 to its select bit; a GLEV
+    CMux of 64 (trivial GLEVs of 0 / 1), every level of every output
+    decoding its select bit; a scheme switch of 32 GLEVs of random bits
+    under a scheme switch key made from the same secret key, each output
+    GGSW checked as bench.py checks it, through cmux(trivial 0, trivial
+    2^63) and decoding. Each op's worst margin, its median rate over
+    DS32_TIMED_CALLS synchronised calls, and the same op's rate on the c128
+    backend beside it. Raises on a wrong decryption."""
+    from spf_tpu_torch.ops.u64 import encryption as enc
+    from spf_tpu_torch.ops.u64 import fft_ops
+    from spf_tpu_torch.ops.u64 import scheme_switch as ss
+    from spf_tpu_torch.ops.u64.fft import get_backend
+    from spf_tpu_torch.params import DEFAULT_128
+
+    p, dev = ev.params, ev.device  # DEFAULT_128 on the card
+    glwe, radix = p.l1_params, p.cbs_radix
+    ds32, c128 = get_backend("ds32"), get_backend("c128")
+    gen = torch.Generator(device=dev).manual_seed(DS32_SEED)
+    n = glwe.degree
+    b_cmux, b_glev, b_ss = 256, 64, 32
+    sel_bits = torch.randint(0, 2, (b_cmux,), generator=gen, device=dev)
+    ggsw = enc.encrypt_ggsw_scalar(gen, sel_bits, sk.glwe_1, glwe, radix)
+    zero_poly = torch.zeros(n, dtype=torch.int64, device=dev)
+    one_poly = zero_poly.clone()
+    one_poly[0] = -(2**63)  # 1 << 63
+    d0 = enc.trivial_glwe(zero_poly, glwe).expand(b_cmux, -1, -1)
+    d1 = enc.trivial_glwe(one_poly, glwe).expand(b_cmux, -1, -1)
+    unit = zero_poly.clone()
+    unit[0] = 1
+    glev0 = enc.trivial_glev(zero_poly, glwe, radix).expand(b_glev, -1, -1, -1)
+    glev1 = enc.trivial_glev(unit, glwe, radix).expand(b_glev, -1, -1, -1)
+    ss_bits = torch.randint(0, 2, (b_ss,), generator=gen, device=dev)
+    glev_in = enc.encrypt_glev(gen, ss_bits[:, None] * unit, sk.glwe_1, glwe, radix)
+    ssk = ss.generate_scheme_switch_key(gen, sk.glwe_1, glwe, p.ss_radix, be=None)
+    rows, failures, launches = {}, [], {}
+
+    def phases(ct):
+        return enc.decrypt_glwe(ct, sk.glwe_1, glwe)
+
+    def op_row(name, batch, make, check):
+        row = {}
+        for be in (ds32, c128):
+            fn, args = make(be)
+            out, first_s, launches[f"ds32 {name} {be.name}"], _ = drive(
+                lambda: fn(*args), expect_launches(), f"path 11 ({name}, {be.name})")
+            right, margin = check(out, be)
+            times = []
+            for _ in range(DS32_TIMED_CALLS):
+                t0 = time.perf_counter()
+                fn(*args)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            row[be.name] = dict(right=right, noise_margin_bits_worst=margin, first_call_s=first_s,
+                                call_s=times, per_sec=batch / statistics.median(times))
+            if not right or margin < MIN_U64_MARGIN_BITS:
+                failures.append(f"{name} on {be.name}: right {right}, worst margin {margin:.2f}")
+        rows[name] = dict(batch=batch, **row)
+
+    op_row("cmux", b_cmux,
+           lambda be: (lambda s: fft_ops.cmux(d0, d1, s, glwe, radix, be), (be.fwd_torus(ggsw),)),
+           lambda out, be: phase0_margins(phases(out)[:, 0], sel_bits, 63))
+
+    def glev_check(out, be):
+        checks = [phase0_margins(phases(out[:, j])[:, 0], sel_bits[:b_glev],
+                                 64 - radix.radix_log * (j + 1)) for j in range(radix.count)]
+        return all(c[0] for c in checks), min(c[1] for c in checks)
+
+    op_row("glev_cmux", b_glev,
+           lambda be: (lambda s: fft_ops.glev_cmux(glev0, glev1, s, glwe, radix, be),
+                       (be.fwd_torus(ggsw[:b_glev]),)),
+           glev_check)
+
+    def ss_check(out, be):
+        sel = fft_ops.cmux(d0[:b_ss], d1[:b_ss], out, glwe, radix, be)
+        return phase0_margins(phases(sel)[:, 0], ss_bits, 63)
+
+    op_row("scheme_switch", b_ss,
+           lambda be: (lambda g, k: fft_ops.scheme_switch_fft(g, k, glwe, radix, p.ss_radix, be),
+                       (glev_in, be.fwd_torus(ssk))),
+           ss_check)
+    emit(dict(phase="ds32", path="ds32 backend op rows (bench.py suite)",
+              params="DEFAULT_128" if p == DEFAULT_128 else repr(p),
+              card=hw["nvidia_smi"], rows=rows))
+    if failures:
+        raise AssertionError(f"path 11 (ds32): {failures}")
+    return launches
+
+
 def cycle_breakdown(cycle, ct) -> dict:
     """Each stage of one conversion cycle run alone, on the previous
     stage's output: wall seconds of 2 synchronised calls, one profiled
@@ -2133,6 +2361,8 @@ def main() -> int:
     u64_launches, u64_keys = timed("u64_api", lambda: phase_u64_api(hw))
     by_path.update(u64_launches)
     by_path.update(timed("pfks", lambda: phase_pfks(hw, *u64_keys)))
+    by_path.update(timed("noise", lambda: phase_noise(hw, *u64_keys)))
+    by_path.update(timed("ds32", lambda: phase_ds32(hw, *u64_keys)))
     del u64_keys
     probes, opaque_launches = timed("probes", phase_probes)
     by_path.update(probes)

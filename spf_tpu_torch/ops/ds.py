@@ -22,6 +22,7 @@ im_lo).
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def two_sum(a, b):
@@ -71,6 +72,31 @@ def from_f64_array(x):
     hi = np.asarray(x, dtype=np.float32)
     lo = np.asarray(x - hi.astype(np.float64), dtype=np.float32)
     return hi, lo
+
+
+def from_i64(x):
+    """i64 values (|x| < 2^63) -> ds pairs capturing the top ~48 bits
+    (`spf_tpu/ops/ds.py::from_i64`, the same bits). The hi component is
+    clamped below +2^63: f32(2^63 - 1) rounds up to 2^63, which no i64
+    holds, so the residual is taken against the stored hi (2^63 - 2^40 is
+    exact in f32)."""
+    hi = torch.clamp(x.to(torch.float32), max=2.0**63 - 2.0**40)
+    lo = (x - hi.to(torch.int64)).to(torch.float32)
+    return hi, lo
+
+
+def to_u64_mod_q(hi, lo):
+    """Round a ds value to the nearest integer mod q = 2**64, as wrapping
+    int64 (`spf_tpu/ops/ds.py::to_u64_mod_q`, the same bits; the ds analog
+    of `vector_mod_pow2_q_f64`). hi and k*2^64 share an ulp grid, so the
+    reduction is exact; the reduced hi and the rounded lo are cast to i64
+    and added with wraparound."""
+    q = 2.0**64
+    k = torch.round(hi / q)
+    r_hi = hi - k * q  # exact: both operands are multiples of ulp(hi)
+    # r_hi is in [-q/2, q/2]; only the +q/2 endpoint would overflow i64
+    r_hi = torch.where(r_hi >= 2.0**63, r_hi - q, r_hi)
+    return r_hi.to(torch.int64) + torch.round(lo).to(torch.int64)
 
 
 def cadd(a, b):

@@ -13,6 +13,7 @@ family lives here:
 - `ciphertext`    ≙ `spf_tpu/ops/ciphertext.py`
 - `encryption`    ≙ `spf_tpu/ops/encryption.py`
 - `fft`           ≙ `spf_tpu/ops/fft.py` (the c128 backend, `torch.fft`)
+- `fft_ds32`      ≙ `spf_tpu/ops/fft_ds32.py` (the ds32 backend, f32 pairs)
 - `fft_ops`       ≙ `spf_tpu/ops/fft_ops.py`
 - `keyswitch`     ≙ `spf_tpu/ops/keyswitch.py`
 - `scheme_switch` ≙ `spf_tpu/ops/scheme_switch.py`
@@ -24,11 +25,13 @@ family lives here:
 A torus element is one `torch.int64` whose bits are the u64's. Layouts
 are the reference's, with leading batch dims: LWE [..., n+1], GLWE
 [..., k+1, N], GLEV [..., l, k+1, N], GGSW [..., k+1, l, k+1, N];
-frequency-domain values are complex128 [..., N/2]. Where a function is
+frequency-domain values are complex128 [..., N/2] (c128) or `DsFreq`,
+four f32 planes of that shape (ds32). Where a function is
 one the port already has (the LWE keyswitch, `decompose`, `shr_round`,
 the binary-key products and the samplers), these modules call it.
 
 The JAX package computes this family outside any Pallas kernel (the c128
-backend is `jnp.fft` plus elementwise products), so it has no kernel of
-its own here either: `torch.fft` and elementwise PyTorch on the card.
+backend is `jnp.fft` plus elementwise products, the ds32 one plain jnp),
+so it has no kernel of its own here either: `torch.fft` and elementwise
+PyTorch on the card.
 """

@@ -22,6 +22,7 @@ import functools
 import numpy as np
 import torch
 
+from .fft_ds32 import DS32, DS32Backend
 from .torus import f64_to_torus, to_signed_f64
 
 
@@ -69,20 +70,21 @@ class C128Backend:
     def stack(self, fs, axis=0):
         return torch.stack(list(fs), dim=axis)
 
+    def set_component(self, acc, idx: int, value) -> None:
+        """Component `idx` of `acc`'s (k+1) axis set to `value`, in place."""
+        acc[..., idx, :] = value
+
 
 C128 = C128Backend()
 
 
 def get_backend(name: str = "c128"):
-    """The FFT backend by name. Only "c128" is ported: "ds32" (the JAX
-    package's double-single f32 backend, `fft_ds32.py`) waits for its
-    own slice and raises rather than run as c128."""
-    if isinstance(name, C128Backend):
+    """The FFT backend by name ("c128" or "ds32", `fft_ds32.DS32`), or a
+    backend object as it is."""
+    if isinstance(name, (C128Backend, DS32Backend)):
         return name
     if name == "c128":
         return C128
     if name == "ds32":
-        raise NotImplementedError(
-            "fft backend 'ds32' is not ported yet (ROADMAP Queue 1 item 3: fft_ds32.py, "
-            "fft_ds32_t.py, bootstrap_tpu.py); use 'c128'")
+        return DS32
     raise ValueError(f"unknown fft backend {name!r}")

@@ -106,7 +106,8 @@ def scheme_switch_fft(glev, ssk_fft, glwe_def: GlweDef, radix_ggsw: RadixDecompo
     rows = []
     for j in range(k):
         acc = be.zeros((*glev.shape[:-2], kp1, glwe_def.degree // 2), device=glev.device)
-        acc[..., j, :] = b_fft  # `update_encrypted_secret_key_component_fft`, fft_ops.rs:225-242
+        # `update_encrypted_secret_key_component_fft`, fft_ops.rs:225-242
+        be.set_component(acc, j, b_fft)
         for r in range(k):
             for jj in range(radix_ss.count):
                 acc = be.cmadd(acc, digit_fft[jj, ..., :, r, None, :], ssk_fft[j, r, jj])

@@ -1,15 +1,18 @@
 """Parameter sets for the TFHE scheme (PyTorch port).
 
 A copy of the parameter dataclasses, sets and depth model of
-`spf_tpu.params`, so that the port imports nothing of the JAX package.
-The security estimates (`security_level` and its two callers) come with
-the port of `utils/security.py`. The torus is Z_q with q = 2**64; the
+`spf_tpu.params`, so that the port imports nothing of the JAX package,
+with its security estimates over the port's copy of `utils/security.py`.
+The torus is Z_q with q = 2**64; the
 port carries torus elements as wrapping `torch.int64`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
+
+from .utils.security import lwe_std_to_security_level
 
 TORUS_BITS = 64  # q = 2**64
 
@@ -137,3 +140,47 @@ def noise_exponent_at_depth(depth: float) -> float:
     exponent at a given multiplexer-tree depth (reference
     `parasol_runtime/src/params.rs:103-106`; ~2^-125 at depth 1024)."""
     return -1.0 / (6.162e-6 * (depth + 304.7668)) - 3.3379
+
+
+def security_level(lwe: LweDef) -> float:
+    """Security bits of an LWE instance per the lattice-estimator fit
+    (≙ `SecurityLevel for LweDef`, `sunscreen_tfhe/src/params.rs:176-180`).
+    Raises `utils.security.OutsideConstraintsError` outside the fit's
+    validity region."""
+    return lwe_std_to_security_level(lwe.dim, lwe.std)
+
+
+def assert_security_level(lwe: LweDef, specified: int, tolerance: float = 0.25):
+    """Assert the instance achieves `specified` bits within +-0.25
+    (≙ `SecurityLevel::assert_security_level`, `params.rs:14-26`)."""
+    got = security_level(lwe)
+    assert abs(got - specified) <= tolerance, (
+        f"security level mismatch: expected {specified}, got {got}"
+    )
+
+
+def security_estimate_ok(lwe: LweDef, level: float = 128.0) -> bool:
+    """True iff (dim, std) achieves at least `level` bits per the
+    lattice-estimator fit (conjunctive on BOTH dim and std: a large
+    dimension with tiny noise does NOT pass). Points outside the fit's
+    validity polytope fail closed, except dimensions above the fit range
+    with noise at/above the fitted band's minimum, which only get more
+    secure with dimension."""
+    if lwe.std <= 0:
+        return False
+    try:
+        return security_level(lwe) >= level
+    except Exception:
+        # Outside the fit region. Security grows with dimension (at fixed
+        # noise) and with noise (at fixed dimension), so clamp toward the
+        # fitted band from the MORE-secure side only: a conservative
+        # lower bound; too-little-noise points stay rejected.
+        dim = min(lwe.dim, 2048)
+        log_std = math.log10(lwe.std)
+        band_top = 0.7390928205510939 - 0.0077927720025765665 * dim
+        if log_std < band_top:
+            return False  # less noise than the fitted band: fail closed
+        try:
+            return lwe_std_to_security_level(dim, 10.0 ** (band_top - 1e-9)) >= level
+        except Exception:
+            return False

@@ -146,7 +146,7 @@ class CircuitExecutor:
             vals = [take(_role(preds.get(i, []), role)) for i in node_ids]
             if len(vals) == 1:
                 return vals[0], False
-            return torch.stack(vals, dim=0), True
+            return ev.be.stack(vals, axis=0), True
 
         def scatter(result, batched):
             if not batched:

@@ -1,4 +1,5 @@
-"""The port's counterparts of the TPU probe scripts under `scripts/`:
+"""The port's counterparts of the TPU probe scripts under `scripts/`, and
+of `examples/op_noise.py`:
 
 - `step_microbench` (≙ `scripts/tpu_step_microbench.py`): the components
   of one blind-rotation step, the in-loop phase generator among them;
@@ -10,11 +11,15 @@
   `rot_decomp.cu`, `mad.cu`, `phase.cu` or `probe.cu`) timed against each
   other in turns, alone and inside the path or probe that runs them, each
   a copy of the package with its own source; `mad_edges` and
-  `probe_edges` hold the edge shapes that a copy is checked at.
+  `probe_edges` hold the edge shapes that a copy is checked at;
+- `op_noise` (≙ `examples/op_noise.py`): the empirical noise of
+  encryption, keyswitch, CMux chains and CBS at the example's parameters,
+  written as JSON (`op_noise.measure` also takes a CPU device).
 
 Each runs on a CUDA card as `python -m spf_tpu_torch.scripts.<name>`
-(without a card it raises), prints one JSON line per measurement and
-returns the lines from `main()`. Importing a module runs nothing; the
+(without a card it raises), prints one JSON line per measurement (op_noise:
+one line per op, its rows written to `--out`) and returns them from
+`main()`. Importing a module runs nothing; the
 functions that build a script's inputs (`step_microbench.components`,
 `gap_probe2.variants`, `vpu_probe.inputs`) also take a CPU device.
 

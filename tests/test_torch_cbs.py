@@ -134,10 +134,29 @@ def _python_scan(f, init, xs):
     return carry, None if ys[0] is None else jax.tree_util.tree_map(lambda *y: jnp.stack(y), *ys)
 
 
+# The JAX package's integer limb functions, each jitted once for the module
+# (integer arithmetic, and the products by powers of two of from_ds /
+# to_ds, exact, have the same bits jitted as op by op; one compile a
+# function costs less than its eager operators' compiles). The ds32
+# arithmetic stays eager.
+_JITTED_INTEGER_FNS = [
+    (lb, "add", jax.jit(lb.add)),
+    (lb, "neg", jax.jit(lb.neg)),
+    (lb, "where", jax.jit(lb.where)),
+    (lb, "from_ds", jax.jit(lb.from_ds)),
+    (lb, "to_ds", jax.jit(lb.to_ds)),
+    (lb, "decompose", jax.jit(lb.decompose, static_argnums=1)),
+    (lb, "shr_round", jax.jit(lb.shr_round, static_argnums=1)),
+]
+
+
 @pytest.fixture
 def twins(monkeypatch):
     """The JAX functions with the bit-reversed FFT twins in place of
-    their backend's FFT, and `scan` as a Python loop."""
+    their backend's FFT, `scan` as a Python loop, and the integer limb
+    functions jitted."""
+    for module, name, fn in _JITTED_INTEGER_FNS:
+        monkeypatch.setattr(module, name, fn)
     def fwd_signed(digits, use_pallas=None):
         d = digits.astype(jnp.float32)
         return _canon_fwd(d, jnp.zeros_like(d))

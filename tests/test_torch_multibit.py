@@ -81,16 +81,49 @@ def spectra(material):
     return bootstrap.bsk_to_freq(torus.from_u64_np(material["bsk"]))
 
 
+# The JAX package's integer limb functions, each jitted once for the module
+# and put in place of the eager one while a reference runs (both references
+# below share the compiles): integer arithmetic, and the products by powers
+# of two of from_ds / to_ds (exact, so an fma rounds them alike), have the
+# same bits jitted as op by op, and one compile a
+# function costs less than its eager operators' compiles. The ds32
+# arithmetic stays eager.
+_J_MONOMIAL_MUL = jax.jit(bu.monomial_mul_u32)
+_J_SAMPLE_EXTRACT = jax.jit(bu.sample_extract_u32, static_argnums=(1, 2))
+_JITTED_INTEGER_FNS = [
+    (lb, "add", jax.jit(lb.add)),
+    (lb, "from_ds", jax.jit(lb.from_ds)),
+    (lb, "to_ds", jax.jit(lb.to_ds)),
+    (lb, "decompose", jax.jit(lb.decompose, static_argnums=1)),
+    (lb, "modulus_switch", jax.jit(lb.modulus_switch, static_argnums=(1, 2, 3))),
+    (bu, "monomial_mul_u32", _J_MONOMIAL_MUL), (jmb, "monomial_mul_u32", _J_MONOMIAL_MUL),
+    (bu, "sample_extract_u32", _J_SAMPLE_EXTRACT), (jmb, "sample_extract_u32", _J_SAMPLE_EXTRACT),
+]
+
+
+def _jit_integer_fns(mp):
+    for module, name, fn in _JITTED_INTEGER_FNS:
+        mp.setattr(module, name, fn)
+
+
 @pytest.fixture(scope="module")
 def reference(material, spectra):
+    with pytest.MonkeyPatch.context() as mp:
+        _jit_integer_fns(mp)
+        return _reference(material, spectra)
+
+
+def _reference(material, spectra):
     """The JAX TPU-branch composition, op by op, recording step 0. It
     takes the port's key spectra (checked on their own below).
 
-    It runs eagerly outside any `jit`, where every jnp operator is its own
-    XLA computation, exactly as under `jax.disable_jit()` (no FP
-    contraction across operators; the FFT test of tests/test_torch_ops.py
-    runs the same functions under `disable_jit()` and gets the same bits),
-    at a third of the dispatch cost per operator."""
+    Its ds32 arithmetic runs eagerly outside any `jit`, where every jnp
+    operator is its own XLA computation, exactly as under
+    `jax.disable_jit()` (no FP contraction across operators; the FFT test
+    of tests/test_torch_ops.py runs the same functions under
+    `disable_jit()` and gets the same bits), at a third of the dispatch
+    cost per operator; its integer limb functions run jitted
+    (`_JITTED_INTEGER_FNS`)."""
     n = GLWE.degree
     spectra = tuple(jnp.asarray(c.numpy()) for c in spectra)
     ct_sw = lb.modulus_switch(lb.from_u64_np(material["ct"]), 0, 0, GLWE.log_degree + 1)
@@ -209,7 +242,8 @@ def test_pbs_decrypts_as_reference(material, monkeypatch):
     The reference runs op by op, eagerly: its `fori_loop` becomes a Python
     loop and the `jit` of its key conversion is dropped, which is what
     `jax.disable_jit()` does to them, at a third of the dispatch cost per
-    operator (compiling the loop body under `jit` takes minutes on CPU).
+    operator (compiling the loop body under `jit` takes minutes on CPU);
+    its integer limb functions run jitted, as in `reference`.
     Its cost grows with the number of groups, so the keys are cut to
     their first two groups (n0 = 6: the first 6 LWE key bits, whose
     multi-bit key is the first two rows of the BSK); the bit-for-bit
@@ -226,6 +260,7 @@ def test_pbs_decrypts_as_reference(material, monkeypatch):
     got = _decode(torus.to_u64_np(out).T, material["glwe_sk"])
     monkeypatch.setattr(jax.lax, "fori_loop", _python_fori_loop)
     monkeypatch.setattr(jax, "jit", lambda f, **_: f)
+    _jit_integer_fns(monkeypatch)
     freq = bu.bsk_to_freq_u32(bsk, use_pallas=False)
     ref = jmb.programmable_bootstrap_multibit_u32(
         lb.from_u64_np(ct), lb.from_u64_np(material["lut"]), freq,

@@ -5,8 +5,11 @@ The four cases of `tests/test_pfks.py` (identity map, two-slot map,
 public identity, the CBS-PFKS selector) on the JAX package's keys, carried
 across by `convert.functional_keyswitch_key`, at sizes below that test's
 (LWE dim 16, GLWE k = 2, N = 32, noise 1e-16): the JAX key generation
-loops in Python over every key row, ~9 ms a row here, so the keys are
-made once for the module.
+loops in Python over every key row (786 GLWE encryptions for the four
+keys), so the keys are made once for the module, each row's encryption
+and the CBS-PFKS map's negacyclic product jitted (the JAX package's own
+functions, bit for bit with their eager runs: integer arithmetic and the
+same jax.random stream; eagerly they took ~20 ms a row here).
 
 - Bit for bit: the integer functions (the scalar digits and MAD, the
   private keyswitch, `extract_and_rotate`) on the same inputs.
@@ -27,6 +30,7 @@ import torch
 
 from spf_tpu.ops import encryption as j_enc
 from spf_tpu.ops import pfks as j_pfks
+from spf_tpu.ops import poly as j_poly
 from spf_tpu.params import GlweDef as JGlweDef
 from spf_tpu.params import LweDef as JLweDef
 from spf_tpu.params import RadixDecomposition as JRadix
@@ -51,6 +55,16 @@ J_LWE = JLweDef(dim=LWE.dim, std=LWE.std)
 J_GLWE = JGlweDef(size=GLWE.size, degree=GLWE.degree, std=GLWE.std)
 J_RADIX = JRadix(count=RADIX.count, radix_log=RADIX.radix_log)
 N = GLWE.degree
+
+
+# The JAX package's integer functions that the tests call many times,
+# jitted: the same bits as eagerly, one compile a shape instead of an eager
+# gather and MAD per key row
+J_PRIVATE_KEYSWITCH = jax.jit(j_pfks.private_functional_keyswitch, static_argnums=(2, 3, 4))
+J_EXTRACT_AND_ROTATE = jax.jit(j_pfks.extract_and_rotate, static_argnums=(1, 2))
+# its c128 public keyswitch too: held within TOL, which a jitted FFT's last
+# ulps do not approach
+J_PUBLIC_KEYSWITCH = jax.jit(j_pfks.public_functional_keyswitch, static_argnums=(2, 3, 4, 5))
 
 
 def k(i):
@@ -90,6 +104,13 @@ def two_map(slots):
 def keys():
     """The JAX package's secret keys and functional keyswitch keys (the
     reference test's seeds), and each carried across."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(j_enc, "encrypt_glwe", jax.jit(j_enc.encrypt_glwe, static_argnums=3))
+        mp.setattr(j_poly, "negacyclic_mul_exact", jax.jit(j_poly.negacyclic_mul_exact))
+        return _jax_keys()
+
+
+def _jax_keys():
     lwe_sk = j_enc.generate_lwe_sk(k(0), J_LWE)
     glwe_sk = j_enc.generate_glwe_sk(k(1), J_GLWE)
     j = dict(
@@ -137,7 +158,7 @@ def test_private_keyswitch(keys, name, map_fn, msgs):
     key = keys["port"][name]
     out = pfks.private_functional_keyswitch(cts, key, LWE, GLWE, RADIX)
     for c, m in zip(range(len(msgs)), msgs):
-        want = j_pfks.private_functional_keyswitch(
+        want = J_PRIVATE_KEYSWITCH(
             jnp.asarray(port_torus.to_u64_np(cts[c])), keys["j"][name], J_LWE, J_GLWE, J_RADIX)
         assert same(out[c], want)
         dec = t64.decode(enc.decrypt_glwe(out[c], keys["glwe_sk"], GLWE), 2)
@@ -150,7 +171,7 @@ def test_public_keyswitch_identity(keys):
         ct = _lwe_inputs(keys, [[msg]], seed=30 + msg)[0]
         out = pfks.public_functional_keyswitch(ct, keys["port"]["public"], id_map, LWE, GLWE,
                                                RADIX)
-        want = tt(j_pfks.public_functional_keyswitch(
+        want = tt(J_PUBLIC_KEYSWITCH(
             jnp.asarray(port_torus.to_u64_np(ct)), keys["j"]["public"], j_id_map, J_LWE, J_GLWE,
             J_RADIX))
         assert float((out - want).abs().max()) <= TOL
@@ -201,12 +222,12 @@ def test_cbs_pfks_selector(keys):
                                                           GLWE, RADIX)
                         for j in range(GLWE.size + 1)], dim=-4)
     for b in range(len(bits)):
-        j_lwes = j_pfks.extract_and_rotate(jnp.asarray(port_torus.to_u64_np(lo[b])), J_GLWE,
-                                           j_cbs_radix)
+        j_lwes = J_EXTRACT_AND_ROTATE(jnp.asarray(port_torus.to_u64_np(lo[b])), J_GLWE,
+                                      j_cbs_radix)
         assert same(lwes[b], j_lwes)
         for j in range(GLWE.size + 1):
             for i in range(CBS_RADIX.count):
-                assert same(rows[b, j, i], j_pfks.private_functional_keyswitch(
+                assert same(rows[b, j, i], J_PRIVATE_KEYSWITCH(
                     j_lwes[i][None, :], keys["j"]["cbs_pfks"][j], j_from, J_GLWE, J_RADIX))
     ggsw = pfks.circuit_bootstrap_via_pfks(ct, bsk, cbsksk, LWE, GLWE, GLWE, PBS_RADIX,
                                            CBS_RADIX, RADIX)

@@ -25,7 +25,9 @@ import pytest
 import torch
 
 from spf_tpu import params as jparams
+from spf_tpu.ops import automorphism as j_automorphism
 from spf_tpu.ops import cbs as j_cbs_ops
+from spf_tpu.ops import fft_ops as j_fft_ops
 from spf_tpu.runtime import keys as j_keys
 from spf_tpu.runtime.evaluation import Evaluation as JEvaluation
 from spf_tpu.runtime.executor import CircuitExecutor as JCircuitExecutor
@@ -44,6 +46,7 @@ from spf_tpu_torch.runtime import ComputeKey, Encryption, Evaluation, generate_k
 from spf_tpu_torch.runtime.executor import CircuitExecutor
 from spf_tpu_torch.runtime.fhe_circuit import CtType, FheCircuit, FheEdge, FheOp
 from spf_tpu_torch.runtime.fluent import FheCircuitCtx, UInt
+from spf_tpu_torch.scripts import op_noise
 from spf_tpu_torch.utils import host_crypto as hc
 from spf_tpu_torch.utils.profiling import WaveProfiler
 
@@ -116,13 +119,18 @@ def test_generate_keys_shapes(material):
 
 
 def test_entry_points_need_a_card(material, monkeypatch):
-    """Without a card the u64 entry points raise unless device="cpu"; no
-    fallback hides the device."""
+    """Without a card the u64 entry points (the ds32 backend's and
+    `op_noise`'s too) raise unless device="cpu"; no fallback hides the
+    device."""
     _, _, ck, _, _ = material
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for fn in (lambda: generate_keys(0, P), lambda: Encryption(P),
                lambda: Evaluation(ck, P, precompute_constants=False),
-               lambda: convert.compute_key(ck)):
+               lambda: convert.compute_key(ck),
+               lambda: generate_keys(0, P, backend="ds32"),
+               lambda: Evaluation(ck, P, be="ds32", precompute_constants=False),
+               lambda: op_noise.measure(P, depth=1, trials=1),
+               lambda: op_noise.main(["--depth", "1", "--trials", "1"])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             fn()
     assert Encryption(P, device="cpu").device == torch.device("cpu")
@@ -193,6 +201,13 @@ def test_add_through_both_executors(material, monkeypatch):
         return carry
 
     monkeypatch.setattr(jax.lax, "fori_loop", fori_loop)
+    # the CBS's trace keyswitches and scheme switch jitted too: c128, held
+    # to PHASE_TOL, far above a jitted FFT's last ulps; one compile each
+    # instead of their eager operators'
+    monkeypatch.setattr(j_automorphism, "keyswitch_glwe_to_glwe", jax.jit(
+        j_fft_ops.keyswitch_glwe_to_glwe, static_argnums=(2, 3, 4)))
+    monkeypatch.setattr(j_cbs_ops, "scheme_switch_fft", jax.jit(
+        j_fft_ops.scheme_switch_fft, static_argnums=(2, 3, 4, 5)))
     a_val, b_val, n = 3, 2, 2
     cts = ev.enc.encrypt_uint_bits(gen(1), a_val, n, sk) + ev.enc.encrypt_uint_bits(
         gen(2), b_val, n, sk)

@@ -90,6 +90,33 @@ def _ct_sw(material):
     return torus.modulus_switch(torus.from_u64_np(material["ct"]), 0, 0, GLWE.log_degree + 1)
 
 
+# The JAX package's integer limb functions, each jitted once for the module
+# and put in place of the eager one while a reference runs (the three
+# references below share the compiles): integer arithmetic, and the
+# products by powers of two of from_ds / to_ds (exact, so an fma rounds them
+# alike), have the same bits jitted as op by op, and one compile a function
+# costs less than its eager operators' compiles. The ds32 arithmetic stays
+# eager.
+_JITTED_INTEGER_FNS = [
+    (lb, "add", jax.jit(lb.add)),
+    (lb, "sub", jax.jit(lb.sub)),
+    (lb, "from_ds", jax.jit(lb.from_ds)),
+    (lb, "to_ds", jax.jit(lb.to_ds)),
+    (lb, "decompose", jax.jit(lb.decompose, static_argnums=1)),
+    (lb, "modulus_switch", jax.jit(lb.modulus_switch, static_argnums=(1, 2, 3))),
+    (bu, "monomial_mul_u32", jax.jit(bu.monomial_mul_u32)),
+    (bu, "sample_extract_u32", jax.jit(bu.sample_extract_u32, static_argnums=(1, 2))),
+]
+
+
+@contextlib.contextmanager
+def _jitted_integer_fns():
+    with pytest.MonkeyPatch.context() as mp:
+        for module, name, fn in _JITTED_INTEGER_FNS:
+            mp.setattr(module, name, fn)
+        yield mp
+
+
 def _reference_start(material, spectra):
     spectra = tuple(jnp.asarray(c.numpy()) for c in spectra)
     ct_sw = lb.modulus_switch(lb.from_u64_np(material["ct"]), 0, 0, GLWE.log_degree + 1)
@@ -102,8 +129,13 @@ def _reference_start(material, spectra):
 @pytest.fixture(scope="module")
 def reference_plain(material, spectra):
     """`blind_rotate_u32`'s plain form, each step cmux_u32(acc,
-    monomial_mul_u32(acc, a_i)) with the bit-reversed FFT twins, op by op;
-    step 0 recorded."""
+    monomial_mul_u32(acc, a_i)) with the bit-reversed FFT twins, its ds32
+    arithmetic op by op; step 0 recorded."""
+    with _jitted_integer_fns():
+        return _reference_plain(material, spectra)
+
+
+def _reference_plain(material, spectra):
     spectra, a, acc = _reference_start(material, spectra)
     step0 = None
     for i in range(LWE.dim):
@@ -120,7 +152,13 @@ def reference_plain(material, spectra):
 
 @pytest.fixture(scope="module")
 def reference_phase_rot(material, spectra):
-    """`blind_rotate_u32`'s phase_rot form in its TPU branch, op by op."""
+    """`blind_rotate_u32`'s phase_rot form in its TPU branch, its ds32
+    arithmetic op by op."""
+    with _jitted_integer_fns():
+        return _reference_phase_rot(material, spectra)
+
+
+def _reference_phase_rot(material, spectra):
     spectra, a, acc = _reference_start(material, spectra)
     ph_lo, ph_hi = jpr.phase_factors_all(a, N, use_pallas=True)
     prod = (jnp.zeros((2, N, B), jnp.float32), jnp.zeros((2, N, B), jnp.float32))
@@ -226,9 +264,9 @@ def reference_decoded(material):
     """`programmable_bootstrap_u32(use_pallas=False)` (plain form, XLA FFT
     order), decoded. It runs op by op, eagerly: its `fori_loop` becomes a
     Python loop and the `jit` of its key conversion is dropped, which is
-    what `jax.disable_jit()` does to them at a third of the dispatch cost."""
-    with contextlib.ExitStack() as stack:
-        mp = stack.enter_context(pytest.MonkeyPatch.context())
+    what `jax.disable_jit()` does to them at a third of the dispatch cost;
+    its integer limb functions run jitted, as in the references above."""
+    with _jitted_integer_fns() as mp:
         mp.setattr(jax.lax, "fori_loop", _python_fori_loop)
         mp.setattr(jax, "jit", lambda f, **_: f)
         freq = bu.bsk_to_freq_u32(material["bsk"], use_pallas=False)

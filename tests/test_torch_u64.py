@@ -368,9 +368,14 @@ def test_decrypt_parity(keys):
 
 
 def test_backend_names():
+    """Both of the reference's backends by name (ds32 is `fft_ds32.DS32`,
+    held bit for bit in tests/test_torch_fft_ds32.py); an unknown name
+    raises."""
+    from spf_tpu_torch.ops.u64.fft_ds32 import DS32
+
     assert fft.get_backend("c128") is fft.C128 and fft.get_backend(fft.C128) is fft.C128
-    with pytest.raises(NotImplementedError, match="fft_ds32"):
-        fft.get_backend("ds32")
+    assert fft.get_backend("ds32") is DS32 and fft.get_backend(DS32) is DS32
+    assert DS32.name == j_fft.get_backend("ds32").name == "ds32"
     with pytest.raises(ValueError):
         fft.get_backend("c64")
 

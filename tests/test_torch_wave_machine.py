@@ -81,19 +81,22 @@ def _lanes(fn):
     """fn on its arguments' lanes (last axis) padded with zeros to
     LANES_CANON, the result cut back: every lane is computed alone, so the
     bits of the real lanes do not change, and each eager JAX operator
-    compiles once for all the circuits' widths instead of once a width."""
+    compiles once for all the circuits' widths instead of once a width (the
+    padding and the cut are numpy's, so they compile nothing)."""
     def pad(x):
         if isinstance(x, tuple):
             return tuple(pad(c) for c in x)
         if not hasattr(x, "ndim") or x.ndim < 2:
             return x
-        return jnp.pad(x, [(0, 0)] * (x.ndim - 1) + [(0, LANES_CANON - x.shape[-1])])
+        return jnp.asarray(np.pad(np.asarray(x), [(0, 0)] * (x.ndim - 1)
+                                  + [(0, LANES_CANON - x.shape[-1])]))
 
     def run(*args):
         w = next(a for a in jax.tree_util.tree_leaves(args) if hasattr(a, "ndim")).shape[-1]
         if w > LANES_CANON:
             return fn(*args)
-        return jax.tree_util.tree_map(lambda c: c[..., :w], fn(*(pad(a) for a in args)))
+        return jax.tree_util.tree_map(lambda c: jnp.asarray(np.asarray(c)[..., :w]),
+                                      fn(*(pad(a) for a in args)))
 
     return run
 
@@ -129,6 +132,8 @@ def twins(monkeypatch):
     monkeypatch.setattr(bu, "inv_limb", _lanes(inv_limb))
     monkeypatch.setattr(bu, "freq_mad", _lanes(bu.freq_mad))
     monkeypatch.setattr(lb, "decompose", _lanes(lb.decompose))
+    monkeypatch.setattr(lb, "add", _lanes(lb.add))
+    monkeypatch.setattr(lb, "sub", _lanes(lb.sub))
     monkeypatch.setattr(j_wm, "inv_limb", _lanes(inv_limb))
     monkeypatch.setattr(jax.lax, "scan", _python_scan)
     torch.set_flush_denormal(True)
