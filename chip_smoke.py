@@ -142,7 +142,28 @@ Phases, each printing one JSON line with its seconds:
    GGSWs checked through a CMux), each decrypting right, its worst margin
    and median rate over 3 calls beside the same op's on c128
    (`phase_ds32`);
-15. the probes, as one path with the launch counts read around it: the
+15. path 12, the t-layout family (`spf_tpu_torch.ops.bootstrap_tpu`,
+   `ops.fft_ds32_t`: plain PyTorch ds32 in coefficient-major layout, no
+   port kernel, every launch count 0 around each call) at DEFAULT_128,
+   keys made on the card and taken to t layout by `bsk_to_t` /
+   `keys_to_t`: bench.py --backend ds32's PBS (LUT (x + 1) % 8, 3 bits,
+   256 lanes) decoding 256/256 and equal to the u64 c128 PBS on the same
+   inputs, the suite's bivariate PBS ((l + r) % 4, packed l * 4 + r, 128
+   lanes) 128/128, `circuit_bootstrap_t` of 8 bits with each GGSW checked
+   through `cmux_t` at every coefficient; worst margins, each call's first
+   and second seconds (one where the first took over 2 minutes), one CMux
+   step at 256 lanes profiled (device ms, kernels, busy share)
+   (`phase_tlayout`);
+16. path 13, the multi-device layer (`spf_tpu_torch.parallel`) on the
+   card's mesh (one card on a one-card machine): `sharded_pbs_multibit`
+   on path 1's key and inputs with path 1's launch counts,
+   `sharded_cbs_u32` on path 3's with one CBS's, `sharded_pbs` on path 8's
+   compute key (no port kernel) and `sharded_pbs_multibit_multihost` on a
+   one-process (1, count) multi-host mesh with path 1's, each bit for bit
+   the unsharded call's; the sharded and unsharded device ms, `replicate`'s
+   seconds a device, and `scaling_model` for 1, 4 and 8 devices, printed as
+   a model (`phase_mesh`);
+17. the probes, as one path with the launch counts read around it: the
    entry points `spf_tpu_torch.scripts.step_microbench`, `gap_probe2` and
    `vpu_probe` through their main() (their lines are printed as they
    come): exactly ITERS launches of `phase_minus_one` in each pm1
@@ -793,16 +814,22 @@ def measure(c) -> dict:
     )
 
 
+def lwe_decoded(out: torch.Tensor, sk: np.ndarray, bits: int):
+    """LWE outputs int64 [n+1, B] decrypted under sk [n] on the host: their
+    phases and the messages decoded to `bits` bits (bench.py:849-858)."""
+    from spf_tpu_torch.ops import encryption, torus
+
+    phase = encryption.lwe_phase_np(torus.to_u64_np(out).T, sk)
+    rb = (phase >> np.uint64(64 - bits - 1)) & np.uint64(1)
+    return phase, ((phase >> np.uint64(64 - bits)) + rb) & np.uint64((1 << bits) - 1)
+
+
 def decode(out: torch.Tensor, sk: np.ndarray, expected: np.ndarray, bits: int = BITS):
     """Decrypt LWE outputs int64 [n+1, B] under the key sk [n] on the
     host: (n_correct, noise margin in bits), as bench.py does for PBS
     outputs (bench.py:859-866) and, with bits = 1, for conversion cycles
     (bench.py:505-521)."""
-    from spf_tpu_torch.ops import encryption, torus
-
-    phase = encryption.lwe_phase_np(torus.to_u64_np(out).T, sk)
-    rb = (phase >> np.uint64(64 - bits - 1)) & np.uint64(1)
-    dec = ((phase >> np.uint64(64 - bits)) + rb) & np.uint64((1 << bits) - 1)
+    phase, dec = lwe_decoded(out, sk, bits)
     err = (phase - (expected.astype(np.uint64) << np.uint64(64 - bits))).astype(np.int64)
     margin = 64 - bits - 1 - float(np.log2(max(float(np.abs(err).max()), 1.0)))
     return int((dec == expected).sum()), margin
@@ -1054,7 +1081,9 @@ def wall_and_device(fn, calls: int):
 
 
 def phase_main_path():
-    """Path 1: DEFAULT_128, g = 3, batch 256, through the user's entry points."""
+    """Path 1: DEFAULT_128, g = 3, batch 256, through the user's entry points.
+    Returns its launches and (the module, its input, output and launches)
+    for path 13."""
     from spf_tpu_torch.ops import encryption, torus
     from spf_tpu_torch.ops.lut import generate_lut_np
     from spf_tpu_torch.ops.multibit import MultibitBootstrap, n_groups
@@ -1108,7 +1137,7 @@ def phase_main_path():
                              f"call ({ng} group steps): glue still runs in the loop")
     if n_correct != BATCH or margin < MIN_MARGIN_BITS:
         raise AssertionError(f"main path: {n_correct}/{BATCH} correct, margin {margin:.2f} bits")
-    return {"multi-bit PBS": launches}
+    return {"multi-bit PBS": launches}, (pbs, ct, out, launches)
 
 
 def phase_single_bit():
@@ -1173,7 +1202,8 @@ def phase_single_bit():
 
 
 def phase_cycle():
-    """Path 3: the conversion cycle at DEFAULT_128, batch 256, g = 2."""
+    """Path 3: the conversion cycle at DEFAULT_128, batch 256, g = 2.
+    Returns its launches and (the module, its input) for path 13."""
     from spf_tpu_torch.ops.cbs import ConversionCycle
     from spf_tpu_torch.ops.multibit import n_groups
     from spf_tpu_torch.params import DEFAULT_128
@@ -1225,7 +1255,7 @@ def phase_cycle():
         raise AssertionError(f"cycle output shape {tuple(out.shape)}")
     if n_correct != BATCH or margin < MIN_CYCLE_MARGIN_BITS:
         raise AssertionError(f"cycle: {n_correct}/{BATCH} correct, margin {margin:.2f} bits")
-    return {"conversion cycle": launches}
+    return {"conversion cycle": launches}, (cycle, ct)
 
 
 # bench.py --intop's workloads (bench.py:536-720): (op, width); instances
@@ -2170,6 +2200,250 @@ def phase_ds32(hw, sk, pk, ev):
     return launches
 
 
+TLAYOUT_SEED = 20261021
+TLAYOUT_PBS_LANES = 256  # bench.py --backend ds32's batch
+TLAYOUT_BIV_LANES = 128  # bench.py's bivariate batch (args.batch or 128)
+TLAYOUT_BIV_BITS = 2
+TLAYOUT_CBS_BITS = (0, 1, 1, 0, 1, 0, 0, 1)  # 8 encrypted bits, 4 of each value
+TLAYOUT_ONE_CALL_S = 120.0  # a call slower than this is timed once, not twice
+
+
+def phase_tlayout(hw):
+    """Path 12: the t-layout family (`ops.bootstrap_tpu`, `ops.fft_ds32_t`:
+    plain PyTorch ds32, no port kernel; every launch count held at 0 around
+    each call) at DEFAULT_128. Keys from the port's keygen on the card
+    (the coefficient-domain bootstrap key at `pbs_radix`, automorphism and
+    scheme-switch keys) taken to t layout by `bsk_to_t` / `keys_to_t`.
+    `bench.py --backend ds32`'s PBS (LUT (x + 1) % 8, 3 bits, 256 lanes;
+    `bench.py:879-906`), decoded, its worst margin as `bench.py:859-866`,
+    and the same 256 inputs through the u64 c128 PBS decoding equal; the
+    suite's bivariate PBS ((l + r) % 4, 2 bits, packed l * 4 + r, 128
+    lanes; `bench.py:1583-1632`); `circuit_bootstrap_t` of 8 bits, each
+    lane's GGSW checked through `cmux_t` at every coefficient. Each call
+    timed first and once more (once where the first took more than
+    TLAYOUT_ONE_CALL_S); one CMux step at 256 lanes profiled (a full call
+    runs millions of operators, too many to trace). Raises on a wrong
+    decryption."""
+    from spf_tpu_torch.ops import bootstrap_tpu as bt
+    from spf_tpu_torch.ops import encryption, torus
+    from spf_tpu_torch.ops.u64 import bootstrap as u64_bs
+    from spf_tpu_torch.ops.u64.fft import C128
+    from spf_tpu_torch.params import DEFAULT_128
+
+    p = DEFAULT_128
+    lwe, glwe, radix = p.l0_params, p.l1_params, p.pbs_radix
+    gen = torch.Generator(device="cuda").manual_seed(TLAYOUT_SEED)
+    rng = np.random.default_rng(TLAYOUT_SEED)
+    lwe_sk = rng.integers(0, 2, lwe.dim).astype(np.int64)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    glwe_sk = encryption.generate_glwe_sk(glwe, gen)
+    bsk = encryption.generate_bsk(lwe_sk, glwe_sk, glwe, radix, gen)
+    ak = encryption.generate_automorphism_keys(glwe_sk, glwe, p.tr_radix, gen)
+    ssk = encryption.generate_scheme_switch_key(glwe_sk, glwe, p.ss_radix, gen)
+    torch.cuda.synchronize()
+    keygen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bsk_t = bt.bsk_to_t(bsk)
+    ak_t, ssk_t = bt.keys_to_t(ak, ssk)
+    torch.cuda.synchronize()
+    to_t_s = time.perf_counter() - t0
+    bsk_c = C128.fwd_torus(bsk)
+    del bsk, ak, ssk
+    glwe_sk_np = glwe_sk.cpu().numpy().astype(np.uint64)
+    sk_flat = glwe_sk_np.reshape(-1)
+    rows, launches, failures = {}, {}, []
+
+    def calls(name, fn):
+        out, first_s, launches[f"t-layout {name}"], peak = drive(fn, expect_launches(),
+                                                                  f"path 12 ({name})")
+        times = [first_s]
+        if first_s <= TLAYOUT_ONE_CALL_S:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return out, dict(call_s=times, peak_device_mem_gib=peak)
+
+    # bench.py --backend ds32's PBS
+    b = TLAYOUT_PBS_LANES
+    msgs = np.arange(b, dtype=np.uint64) % 8
+    expected = lut_fn(msgs)
+    ct = torus.from_u64_np(
+        encryption.encrypt_lwe_np(rng, msgs << np.uint64(64 - BITS - 1), lwe_sk, lwe).T.copy(),
+        "cuda")
+    lut = u64_bs.generate_lut([lut_fn], glwe, BITS, device="cuda")
+    out, timing = calls("PBS", lambda: bt.programmable_bootstrap_t(ct, lut, bsk_t, lwe, glwe,
+                                                                   radix))
+    n_ok, margin = decode(out, sk_flat, expected)
+    ref = u64_bs.programmable_bootstrap_univariate(bt.from_t_layout(ct), lut, bsk_c, lwe, glwe,
+                                                   radix)
+    _, ref_margin = decode(bt.to_t_layout(ref), sk_flat, expected)
+    same = bool(np.array_equal(lwe_decoded(out, sk_flat, BITS)[1],
+                               lwe_decoded(bt.to_t_layout(ref), sk_flat, BITS)[1]))
+    rows["pbs"] = dict(lanes=b, out_shape=list(out.shape), correct=f"{n_ok}/{b}",
+                       noise_margin_bits=margin, decode_equal_c128=same,
+                       c128_noise_margin_bits=ref_margin,
+                       pbs_per_s=b / statistics.median(timing["call_s"]), **timing)
+    if tuple(out.shape) != (glwe.size * glwe.degree + 1, b) or n_ok != b or not same:
+        failures.append(f"PBS: {rows['pbs']}")
+
+    # the suite's bivariate PBS
+    b2, bits2 = TLAYOUT_BIV_LANES, TLAYOUT_BIV_BITS
+    lhs = np.arange(b2, dtype=np.uint64) % 4
+    rhs = (np.arange(b2, dtype=np.uint64) // 4) % 4
+    ct_l, ct_r = (torus.from_u64_np(encryption.encrypt_lwe_np(
+        rng, m << np.uint64(64 - 2 * bits2 - 1), lwe_sk, lwe).T.copy(), "cuda")
+        for m in (lhs, rhs))
+    packed = (ct_l << bits2) + ct_r
+    lut2 = u64_bs.generate_bivariate_lut(lambda lft, rgt: (lft + rgt) % 4, glwe, bits2,
+                                         device="cuda")
+    out2, timing = calls("bivariate PBS", lambda: bt.programmable_bootstrap_t(
+        packed, lut2, bsk_t, lwe, glwe, radix))
+    n_ok2, margin2 = decode(out2, sk_flat, (lhs + rhs) % 4, bits=2 * bits2)
+    rows["bivariate_pbs"] = dict(lanes=b2, correct=f"{n_ok2}/{b2}", noise_margin_bits=margin2,
+                                 pbs_per_s=b2 / statistics.median(timing["call_s"]), **timing)
+    if n_ok2 != b2:
+        failures.append(f"bivariate PBS: {rows['bivariate_pbs']}")
+
+    # circuit_bootstrap_t of 8 bits, each GGSW checked through cmux_t
+    bits_in = np.array(TLAYOUT_CBS_BITS, dtype=np.uint64)
+    ct3 = encrypt_bits(rng, bits_in, lwe_sk, lwe).cuda()
+    ggsw, timing = calls("CBS", lambda: bt.circuit_bootstrap_t(ct3, bsk_t, ak_t, ssk_t, p))
+    m0 = torch.zeros((glwe.size + 1, glwe.degree, len(bits_in)), dtype=torch.int64,
+                     device="cuda")
+    m1 = m0.clone()
+    m1[-1] = torus.encode_const(1, 1)
+    sel = bt.cmux_t(m0, m1, ggsw, glwe, p.cbs_radix)
+    lane_ok, margins = [], []
+    for i, bit in enumerate(bits_in):
+        got, m = host_margins(sel[..., i], glwe_sk_np, glwe, np.full(glwe.degree, bit), 1)
+        lane_ok.append(bool((got == int(bit)).all()))
+        margins.append(m)
+    rows["cbs"] = dict(lanes=len(bits_in), out_shape=list(ggsw[0].shape),
+                       correct=f"{sum(lane_ok)}/{len(bits_in)}",
+                       noise_margin_bits_worst=min(margins), **timing)
+    if not all(lane_ok):
+        failures.append(f"CBS: {rows['cbs']}")
+
+    # one CMux step at 256 lanes, profiled
+    acc = torch.randint(-2**62, 2**62, (glwe.size + 1, glwe.degree, b), device="cuda",
+                        generator=gen)
+    row0 = tuple(c[0] for c in bsk_t)
+
+    def step():
+        return bt.cmux_t(acc, bt.monomial_mul_t(acc, ct[0]), row0, glwe, radix)
+
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    kern = profiled_kernels(step)
+    step_ms = sum(ms for ms, _ in kern.values())
+    top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:5]
+    emit(dict(phase="tlayout", path="t-layout family (bench.py --backend ds32, bivariate PBS, "
+              "CBS_t)", params="DEFAULT_128", card=hw["nvidia_smi"], keygen_s=keygen_s,
+              keys_to_t_s=to_t_s, rows=rows,
+              cmux_step=dict(lanes=b, wall_s=step_s, device_ms=step_ms,
+                             kernels=sum(n for _, n in kern.values()),
+                             busy_share=step_ms / 1e3 / step_s,
+                             top_kernels_ms={name: ms for name, (ms, _) in top})))
+    if failures:
+        raise AssertionError(f"path 12 (t layout): {failures}")
+    return launches
+
+
+def phase_mesh(hw, path1, path3, u64_keys):
+    """Path 13: the multi-device layer (`spf_tpu_torch.parallel`) on the
+    card's mesh (every CUDA device: one on a one-card machine), each
+    sharded call with the launch counts read around it and bit for bit
+    equal to the unsharded call on the same inputs: `sharded_pbs_multibit`
+    on path 1's key and 256 ciphertexts (path 1's launches),
+    `sharded_cbs_u32` on path 3's keys and ciphertexts (one CBS's
+    launches), `sharded_pbs` on path 8's compute key (64 lanes, c128, no
+    port kernel) and `sharded_pbs_multibit_multihost` on a one-process
+    (1, count) multi-host mesh (`init_distributed` a no-op); the seconds
+    `replicate` takes a device for path 1's key from the host, the device
+    ms of the sharded and unsharded PBS and CBS, and `scaling_model` for
+    1, 4 and 8 devices (a model, not a measurement)."""
+    from spf_tpu_torch import parallel
+    from spf_tpu_torch.ops import cbs
+    from spf_tpu_torch.ops.bootstrap import spectra
+    from spf_tpu_torch.ops.u64 import bootstrap as u64_bs
+    from spf_tpu_torch.ops.u64 import encryption as enc64
+    from spf_tpu_torch.params import DEFAULT_128
+
+    p = DEFAULT_128
+    lwe, glwe, radix = p.l0_params, p.l1_params, p.pbs_radix
+    (pbs, ct1, out1, want1), (cycle, ct3) = path1, path3
+    sk, _, ev = u64_keys
+    mesh = parallel.make_mesh()
+    launches, equal, device_ms_by = {}, {}, {}
+
+    host_key = tuple(c.cpu() for c in pbs.bsk_freq)
+    key_bytes = sum(c.numel() * c.element_size() for c in host_key)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bsk_rep = parallel.replicate(host_key, mesh)
+    torch.cuda.synchronize()
+    replicate_s = (time.perf_counter() - t0) / mesh.size
+
+    step = parallel.sharded_pbs_multibit(lwe, glwe, radix, GROUP, bsk_rep, pbs.lut, mesh)
+    out, pbs_s, launches["mesh multi-bit PBS"], _ = drive(
+        lambda: step(ct1), want1, "path 13 (sharded_pbs_multibit)")
+    equal["sharded_pbs_multibit"] = torch.equal(out, out1)
+    device_ms_by["multi-bit PBS"] = dict(sharded=profiled_device_ms(lambda: step(ct1))[0],
+                                         unsharded=profiled_device_ms(lambda: pbs(ct1))[0])
+
+    keys3 = [spectra(cycle, k) for k in ("bsk", "ak", "ssk")]
+    ggsw = cbs.circuit_bootstrap(ct3, *keys3, p)
+    step3 = parallel.sharded_cbs_u32(p, *keys3, mesh)
+    got3, cbs_s, launches["mesh CBS"], _ = drive(
+        lambda: step3(ct3), expect_launches(**cbs_launches(p)), "path 13 (sharded_cbs_u32)")
+    equal["sharded_cbs_u32"] = all(same_bits(g, w) for g, w in zip(got3, ggsw, strict=True))
+    device_ms_by["CBS"] = dict(
+        sharded=profiled_device_ms(lambda: step3(ct3))[0],
+        unsharded=profiled_device_ms(lambda: cbs.circuit_bootstrap(ct3, *keys3, p))[0])
+
+    gen = torch.Generator(device="cuda").manual_seed(TLAYOUT_SEED + 1)
+    msgs = torch.arange(64, device="cuda") % 4
+    cts8 = enc64.encrypt_lwe(gen, msgs << 61, sk.lwe_0, lwe)
+    lut8 = u64_bs.generate_lut([lambda x: (x + 1) % 4], glwe, 2, device="cuda")
+    ref8 = u64_bs.programmable_bootstrap_univariate(cts8, lut8, ev.ck.bsk, lwe, glwe, radix)
+    step8 = parallel.sharded_pbs(p, ev.ck.bsk, mesh, lut8)
+    got8, u64_s, launches["mesh u64 PBS"], _ = drive(lambda: step8(cts8), expect_launches(),
+                                                      "path 13 (sharded_pbs)")
+    equal["sharded_pbs"] = torch.equal(got8, ref8)
+
+    rank_world = parallel.init_distributed()
+    mh = parallel.make_multihost_mesh()
+    step_mh = parallel.sharded_pbs_multibit_multihost(lwe, glwe, radix, GROUP, pbs.bsk_freq,
+                                                      pbs.lut, mh)
+    out_mh, mh_s, launches["mesh multihost PBS"], _ = drive(
+        lambda: step_mh(ct1), want1, "path 13 (sharded_pbs_multibit_multihost)")
+    equal["sharded_pbs_multibit_multihost"] = torch.equal(out_mh, out1)
+
+    per_lane = pbs_s / ct1.shape[-1]
+    model = {str(n): parallel.scaling_model(ct1.shape[-1], hosts, n // hosts,
+                                            per_lane_cost=per_lane,
+                                            key_broadcast_bytes=key_bytes)
+             for n, hosts in ((1, 1), (4, 1), (8, 2))}
+    emit(dict(phase="mesh", path="multi-device layer (spf_tpu_torch.parallel)",
+              params="DEFAULT_128", card=hw["nvidia_smi"], mesh_devices=mesh.size,
+              multihost_mesh=list(mh.devices.shape), init_distributed=list(rank_world),
+              bit_for_bit=equal, call_s=dict(sharded_pbs_multibit=pbs_s, sharded_cbs_u32=cbs_s,
+                                             sharded_pbs=u64_s, multihost=mh_s),
+              device_ms=device_ms_by, replicate_s_per_device=replicate_s,
+              replicated_key_bytes=key_bytes,
+              scaling_model=dict(kind="analytic model, not a measurement",
+                                 per_lane_cost_s=per_lane, by_devices=model)))
+    if not all(equal.values()):
+        raise AssertionError(f"path 13 (mesh): sharded and unsharded differ: {equal}")
+    return launches
+
+
 def cycle_breakdown(cycle, ct) -> dict:
     """Each stage of one conversion cycle run alone, on the previous
     stage's output: wall seconds of 2 synchronised calls, one profiled
@@ -2350,9 +2624,11 @@ def main() -> int:
     timed("small_pbs", phase_small_pbs)
     timed("small_single_bit_and_cycle", phase_small_single_bit_and_cycle)
     by_path = timed("wide_glwe", phase_wide_glwe)
-    by_path.update(timed("main_path", phase_main_path))
+    path1_launches, path1 = timed("main_path", phase_main_path)
+    by_path.update(path1_launches)
     by_path.update(timed("single_bit_pbs", phase_single_bit))
-    by_path.update(timed("conversion_cycle", phase_cycle))
+    path3_launches, path3 = timed("conversion_cycle", phase_cycle)
+    by_path.update(path3_launches)
     timed("small_wave_machine", phase_small_wave_machine)
     keys = timed("wave_keys", wave_keys)
     by_path.update(timed("intop", lambda: phase_intop(keys)))
@@ -2363,7 +2639,9 @@ def main() -> int:
     by_path.update(timed("pfks", lambda: phase_pfks(hw, *u64_keys)))
     by_path.update(timed("noise", lambda: phase_noise(hw, *u64_keys)))
     by_path.update(timed("ds32", lambda: phase_ds32(hw, *u64_keys)))
-    del u64_keys
+    by_path.update(timed("tlayout", lambda: phase_tlayout(hw)))
+    by_path.update(timed("mesh", lambda: phase_mesh(hw, path1, path3, u64_keys)))
+    del u64_keys, path1, path3
     probes, opaque_launches = timed("probes", phase_probes)
     by_path.update(probes)
     for r in results:

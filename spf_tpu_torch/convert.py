@@ -13,6 +13,10 @@ port modules whose spectra the port's own FFT makes:
   automorphism keys (`generate_automorphism_keys_u32`), the scheme-switch
   key (`generate_scheme_switch_key_u32`) and the LWE keyswitch key
   (`generate_lwe_keyswitch_key_u32`) -> `ConversionCycle`;
+- the t-layout family's keys (`spf_tpu.ops.bootstrap_tpu`): the
+  coefficient-domain bootstrap, automorphism and scheme-switch keys, u64
+  or limbs, -> the port's t-layout spectra (`t_layout_keys`), and a
+  t-layout frequency tuple of 4 f32 arrays -> 4 tensors (`freq_t`);
 - the u64 API's keys (`spf_tpu.runtime.keys`' `SecretKey`, `PublicKey`,
   `ComputeKey`, or any object with their fields) -> the port's
   (`runtime.keys`): u64 arrays as int64 with the same bits, the c128
@@ -111,6 +115,31 @@ def conversion_cycle(bsk, auto_keys, ssk, ksk, params, phase_rot: bool = False,
     JAX package's `Params` -> `ConversionCycle` on `device`."""
     return ConversionCycle(_as_u64(bsk), _as_u64(auto_keys), _as_u64(ssk), _as_u64(ksk),
                            _port_param(params, _params.Params), phase_rot, device=device)
+
+
+def t_layout_keys(bsk, auto_keys=None, ssk=None, device="cuda"):
+    """Coefficient-domain keys of the t-layout family, each u64 or a limb
+    pair (bootstrap key [n0, k+1, l, k+1, N]; automorphism keys
+    [log2 N, k, l_tr, k+1, N] and scheme-switch key [k, k, l_ss, k+1, N]
+    for circuit bootstrapping) -> their spectra by the port's
+    `bootstrap_tpu.bsk_to_t` / `keys_to_t` on `device`: the bootstrap
+    key's 4-tensor tuple, or (bsk, auto_keys, ssk) tuples when the other
+    two are given."""
+    from .ops import bootstrap_tpu as bt
+
+    bsk_t = bt.bsk_to_t(to_tensor(bsk, device))
+    if auto_keys is None and ssk is None:
+        return bsk_t
+    return (bsk_t, *bt.keys_to_t(to_tensor(auto_keys, device), to_tensor(ssk, device)))
+
+
+def freq_t(f, device="cuda"):
+    """A t-layout frequency tuple of the JAX package (4 f32 arrays) -> the
+    port's 4 f32 tensors, the same bits, on `device`."""
+    device = torus.resolve_device(device)
+    if len(f) != 4:
+        raise ValueError(f"freq_t: {len(f)} components, want 4")
+    return tuple(torch.from_numpy(np.array(c, dtype=np.float32)).to(device) for c in f)
 
 
 def _field(x, device):

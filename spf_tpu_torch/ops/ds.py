@@ -45,7 +45,7 @@ def two_prod(a, b):
     its difference from p are exact in f64, so `err` is rounded once, as
     the kernels' fma(a, b, -p) rounds it."""
     p = a * b
-    err = (a.double() * b.double() - p.double()).float()
+    err = (a.double() * b - p).float()  # b and p promoted to f64 inside the operators
     return p, err
 
 
@@ -59,9 +59,53 @@ def sub(ahi, alo, bhi, blo):
     return add(ahi, alo, -bhi, -blo)
 
 
+def neg(ahi, alo):
+    return -ahi, -alo
+
+
 def mul(ahi, alo, bhi, blo):
     p, e = two_prod(ahi, bhi)
     e = e + (ahi * blo + alo * bhi)
+    return quick_two_sum(p, e)
+
+
+# 2**12 + 1, the Veltkamp split constant for f32 (exact in f32, so a
+# product with an f32 tensor stays f32)
+_SPLIT = 4097.0
+
+
+def _split(a):
+    t = _SPLIT * a
+    hi = t - (t - a)
+    lo = a - hi
+    return hi, lo
+
+
+def mul_wsplit(ahi, alo, bhi, blo, bhh, bhl):
+    """ds multiply where b's hi component ships with its Veltkamp halves
+    (bhh + bhl == bhi exactly, 12-bit mantissas; `presplit_f32`): the
+    reference's formula term for term, a's runtime split and f32 products,
+    no fused multiply-add."""
+    p = ahi * bhi
+    ah, al = _split(ahi)
+    err = ((ah * bhh - p) + ah * bhl + al * bhh) + al * bhl
+    e = err + (ahi * blo + alo * bhi)
+    return quick_two_sum(p, e)
+
+
+def presplit_f32(x):
+    """Veltkamp halves of an f32 numpy array (host-side, exact)."""
+    x = np.asarray(x, dtype=np.float32)
+    t = np.float32(_SPLIT) * x
+    hi = t - (t - x)
+    lo = x - hi
+    return hi.astype(np.float32), lo.astype(np.float32)
+
+
+def mul_f32(ahi, alo, b):
+    """Multiply a ds number by a plain f32."""
+    p, e = two_prod(ahi, b)
+    e = e + alo * b
     return quick_two_sum(p, e)
 
 

@@ -156,6 +156,16 @@ def profiled_device_ms(fn, top: int = 8):
     return sum(by_name.values()), dict(ranked)
 
 
+class EventsDropped(RuntimeError):
+    """The profiler kept no event of a port kernel that launched."""
+
+
+# profiled windows `time_calls` tries before it gives up on a kernel with
+# no event kept (the profiler drops some events of short kernels: 0-27 of
+# 50 a window on the H100, and once every one)
+PROFILE_TRIES = 3
+
+
 def per_call_device(by_name: dict, launches: dict, calls: int) -> dict:
     """Device us per call of `calls` profiled calls (`profiled_kernels`'
     {name: [ms, events]}), each port kernel's events held against the
@@ -178,7 +188,7 @@ def per_call_device(by_name: dict, launches: dict, calls: int) -> dict:
         ms, kept = sum(v[0] for v in hits.values()), sum(v[1] for v in hits.values())
         label = "/".join(fns)
         if n and not kept:
-            raise RuntimeError(f"profiler kept no event of {label} ({n} launches)")
+            raise EventsDropped(f"profiler kept no event of {label} ({n} launches)")
         if kept < n:
             short[label] = n - kept
         if n:
@@ -193,7 +203,9 @@ def time_calls(fn, calls: int) -> dict:
     """One warm-up call, then `calls` calls issued back to back and one
     synchronise: host us per call and the kernel launches of those calls;
     then the device us per call of another `calls` calls (profiled, each
-    port kernel's events held against those launches: `per_call_device`)."""
+    port kernel's events held against those launches: `per_call_device`;
+    profiled again, up to PROFILE_TRIES windows, while the profiler keeps
+    no event of a port kernel that launched)."""
     fn()
     torch.cuda.synchronize()
     before = kernels.launches()
@@ -203,5 +215,12 @@ def time_calls(fn, calls: int) -> dict:
     torch.cuda.synchronize()
     host_us = (time.perf_counter() - t0) / calls * 1e6
     launches = launches_since(before)
-    by_name = profiled_kernels(lambda: [fn() for _ in range(calls)])
-    return dict(host_us=host_us, launches=launches, **per_call_device(by_name, launches, calls))
+    for tries in range(1, PROFILE_TRIES + 1):
+        by_name = profiled_kernels(lambda: [fn() for _ in range(calls)])
+        try:
+            device = per_call_device(by_name, launches, calls)
+        except EventsDropped:
+            if tries == PROFILE_TRIES:
+                raise
+            continue
+        return dict(host_us=host_us, launches=launches, profiled_windows=tries, **device)

@@ -315,3 +315,21 @@ def test_per_call_device_counts_kept_events():
     assert full["events_short"] == {} and full["device_us"] == pytest.approx(got["device_us"])
     with pytest.raises(RuntimeError):
         per_call_device({}, {"roll": 1}, 1)
+
+
+def test_time_calls_profiles_again_when_events_drop(monkeypatch):
+    """`time_calls` profiles another window while the profiler kept no event
+    of a port kernel that launched, and raises after PROFILE_TRIES such
+    windows."""
+    import spf_tpu_torch.scripts as sc
+
+    monkeypatch.setattr(sc.torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(sc, "launches_since", lambda before: {"roll": 4})
+    windows = iter([{}, {"roll_kernel": [0.02, 4]}])
+    monkeypatch.setattr(sc, "profiled_kernels", lambda fn: next(windows))
+    got = sc.time_calls(lambda: None, 4)
+    assert got["profiled_windows"] == 2
+    assert got["kernel_us"] == {"roll_kernel": pytest.approx(5.0)}
+    monkeypatch.setattr(sc, "profiled_kernels", lambda fn: {})
+    with pytest.raises(sc.EventsDropped):
+        sc.time_calls(lambda: None, 4)

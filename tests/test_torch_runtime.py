@@ -41,6 +41,7 @@ from spf_tpu_torch.ops import torus as port_torus
 from spf_tpu_torch.ops.u64 import bootstrap as u64_bs
 from spf_tpu_torch.ops.u64 import cbs as u64_cbs
 from spf_tpu_torch.ops.u64 import encryption as enc
+from spf_tpu_torch.parallel import init_distributed, make_mesh, make_multihost_mesh
 from spf_tpu_torch.params import GlweDef, LweDef, Params, RadixDecomposition
 from spf_tpu_torch.runtime import ComputeKey, Encryption, Evaluation, generate_keys
 from spf_tpu_torch.runtime.executor import CircuitExecutor
@@ -119,9 +120,9 @@ def test_generate_keys_shapes(material):
 
 
 def test_entry_points_need_a_card(material, monkeypatch):
-    """Without a card the u64 entry points (the ds32 backend's and
-    `op_noise`'s too) raise unless device="cpu"; no fallback hides the
-    device."""
+    """Without a card the u64 entry points (the ds32 backend's,
+    `op_noise`'s, the meshes', `init_distributed` and the t-layout keys'
+    too) raise unless device="cpu"; no fallback hides the device."""
     _, _, ck, _, _ = material
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for fn in (lambda: generate_keys(0, P), lambda: Encryption(P),
@@ -130,7 +131,9 @@ def test_entry_points_need_a_card(material, monkeypatch):
                lambda: generate_keys(0, P, backend="ds32"),
                lambda: Evaluation(ck, P, be="ds32", precompute_constants=False),
                lambda: op_noise.measure(P, depth=1, trials=1),
-               lambda: op_noise.main(["--depth", "1", "--trials", "1"])):
+               lambda: op_noise.main(["--depth", "1", "--trials", "1"]),
+               make_mesh, make_multihost_mesh, init_distributed,
+               lambda: convert.t_layout_keys(np.zeros((1, 2, 2, 2, N), np.uint64))):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             fn()
     assert Encryption(P, device="cpu").device == torch.device("cpu")
