@@ -32,9 +32,13 @@ Phases, each printing one JSON line with its seconds:
    (B = 1, 31, 33, 62, 255; K = 32, 64, 128, 40; every column on one slot;
    slots of -1 and nslots giving NaN; k + 1 = 3, 4, 6 at l = 2 and 4; both
    layouts); the kernels of the CBS and the CMux (`accumulate_decompose`
-   at the CBS radix, `mad_horner` g = 2, `fence`, `fwd_ds` P = 8, `inv_ds`
-   P = 2 and 4) also at B = 32 and 64, the widths of the wave machine's
-   small waves; `fwd_ds` and `inv_ds` also at
+   at the CBS radix, `mad_horner` g = 2, `fwd_ds` P = 8, `inv_ds` P = 2
+   and 4) and `fence` also at B = 32 and 64, the widths of the wave machine's
+   small waves; `phase_factors` at the paths' [steps, B]: the multi-bit
+   PBS's [639, 2048] (timed), the CBS rotation's [638, 256], the
+   single-bit PBS's [637, 256], ragged B = 1 and 129, and at every K of
+   `probe_edges.PHASE_KS` x B = 1, 33 (a at its edges and beyond 2N);
+   `fwd_ds` and `inv_ds` also at
    every K of FFT_KS with ragged B and P up to 8, and timed at each P the
    paths give them, beside torch.fft.fft of complex128 [P, K, B] as a
    yardstick of the card), with both timed (device time:
@@ -230,7 +234,7 @@ PORT_KERNELS = ("accumulate_decompose_kernel", "rotate_sub_decompose_kernel", "f
                 "inv_ds_kernel", "mad_horner_kernel", "mad_plane_kernel", "mad_planes_kernel",
                 "mad_batched_kernel",
                 "copy_kernel",
-                "phase_kernel", "chain_kernel",
+                "phase_kernel", "phase_factors_kernel", "chain_kernel",
                 "fma_probe_kernel", "fma_probe_fma_kernel", "roll_kernel")
 
 
@@ -490,12 +494,57 @@ def phase_kernels(gen, hw):
             nbytes=2 * 4 * factors.numel(),
             ops=0,
         ),
+        phase_factors_case(gen),
     ]
     cases += phase_and_probe_cases(gen, hw)
     f32_per_s = chain_peak_per_s(1, {"fma": 1}, hw)  # one f32 instruction a lane and clock
     for c in cases:
         c.setdefault("ops_per_s", f32_per_s)
     return merge_rows(cases, [measure(c) for c in cases])
+
+
+# the [steps, B] of phase_factors' callers: the multi-bit PBS (g = 3) at the
+# benchmark's batch (timed), the CBS rotation (g = 2) and the single-bit
+# PBS at the paths' batch, and ragged widths
+FACTOR_SHAPES = ((639, 2048), (638, BATCH), (637, BATCH), (639, 1), (639, 129))
+
+
+def phase_factors_case(gen) -> dict:
+    """The hoisted phase factors (`phase_factors`, N = 2048) at every
+    [steps, B] of FACTOR_SHAPES, the exponents random in [0, 2N) after the
+    edges of `probe_edges.exponents` in each shape's first step; also at
+    the edge shapes of `probe_edges.check_phase_factors`."""
+    from spf_tpu_torch.ops import phase_rot
+    from spf_tpu_torch.params import DEFAULT_128
+    from spf_tpu_torch.scripts import probe_edges
+
+    n = DEFAULT_128.l1_params.degree
+    klo, khi = phase_rot.factor_halves(n)
+
+    def exponents(steps, b):
+        a = torch.randint(0, 2 * n, (steps, b), generator=gen, device="cuda")
+        a[0] = probe_edges.exponents(n, b, gen)
+        return a
+
+    def flat(fn):
+        return lambda a, nn: sum(fn(a, nn), ())
+
+    (steps, b), *extra = FACTOR_SHAPES
+    return dict(
+        name="phase_factors", source="spf_tpu_torch/csrc/phase.cu",
+        replaces="none: XLA glue on the TPU (spf_tpu/ops/phase_rot.py:364)",
+        note=f"phase_factors_kernel, timed at [steps, B] = [{steps}, {b}] (Klo = {klo}, Khi = "
+             f"{khi}); also held bit for bit at {[list(x) for x in extra]}; edge_shapes: "
+             "scripts.probe_edges.check_phase_factors (K 2-2048 x B 1, 33, 3 steps)",
+        kernel=flat(phase_rot.phase_factors_all), plain=flat(phase_rot.phase_factors_all_plain),
+        args=(exponents(steps, b), n), extra_args=[(exponents(*x), n) for x in extra],
+        edge_check=lambda: probe_edges.check_phase_factors(gen),
+        plain_copies=1,  # ~900 launches: one copy times them
+        reps=10,  # 1.34 GB of output a call, each kept to the end of the timing
+        # the two outputs written once, a and the table read once
+        nbytes=16 * (klo + khi) * steps * b + 8 * steps * b + 16 * 2 * n,
+        ops=steps * b * (klo + khi - 2) * CMUL,  # the doubling of both halves
+    )
 
 
 # the widths below 256 of the wave machine's CMux (64) and CBS (32) waves
@@ -787,9 +836,10 @@ def measure(c) -> dict:
     exact = exact and not (edges and edges["not_bitexact"])
     del got, want
     copies = cold_copies(args, c["nbytes"])
-    kernel_ms, host_us = device_ms(c["kernel"], copies, 50)
+    reps = c.get("reps", 50)  # every output is kept to the end: fewer for a large one
+    kernel_ms, host_us = device_ms(c["kernel"], copies, reps)
     if c.get("plain_is_one_launch"):
-        plain_ms = device_ms(c["plain"], copies, 50)[0]
+        plain_ms = device_ms(c["plain"], copies, reps)[0]
     else:  # thousands of launches: summed by the profiler
         plain_copies = copies[:c.get("plain_copies", len(copies))]
         c["plain"](*args)  # warm-up
@@ -1015,7 +1065,7 @@ def phase_wide_glwe():
     want = expect_launches(
         accumulate_decompose=ks * (g3 + g2 + steps), rotate_sub_decompose=ks * steps,
         rotate_sub_decompose_acc=ks * steps, fwd_ds=ks * (g3 + g2 + 3 * steps),
-        inv_ds=ks * (g3 + g2 + 3 * steps), fence=ks * 3 * 8, mad_any_kp1_g3=ks * g3,
+        inv_ds=ks * (g3 + g2 + 3 * steps), phase_factors=ks * 3, mad_any_kp1_g3=ks * g3,
         mad_any_kp1_g2=ks * g2, mad_any_kp1_g1=ks * steps, mad_any_kp1_g0=ks * 2 * steps)
     ct_gpu = ct.cuda()
     outs, _, launches, _ = drive(lambda: [gpu(ct_gpu) for _, _, gpu, _ in runs], want,
@@ -1111,7 +1161,8 @@ def phase_main_path():
     ct = torus.from_u64_np(cts.T.copy(), "cuda")  # [n0+1, B]
 
     ng = n_groups(lwe.dim, GROUP)
-    want = expect_launches(accumulate_decompose=ng, fwd_ds=ng, inv_ds=ng, mad_horner=ng, fence=8)
+    want = expect_launches(accumulate_decompose=ng, fwd_ds=ng, inv_ds=ng, mad_horner=ng,
+                           phase_factors=1)
     out, first_s, launches, peak_gib = drive(lambda: pbs(ct), want, "path 1 (multi-bit PBS)")
 
     sk_flat = glwe_sk.cpu().numpy().reshape(-1).astype(np.uint64)
@@ -1167,7 +1218,7 @@ def phase_single_bit():
         "plain": expect_launches(rotate_sub_decompose=n0, fwd_ds=n0, inv_ds=n0, freq_mad=n0),
         "fuse_rot": expect_launches(rotate_sub_decompose_acc=n0, fwd_ds=n0, inv_ds=n0, freq_mad=n0),
         "phase_rot": expect_launches(accumulate_decompose=n0, fwd_ds=n0, inv_ds=n0,
-                                     mad_horner_g1=n0, fence=8),
+                                     mad_horner_g1=n0, phase_factors=1),
     }
     res = dict(phase="single_bit_pbs", path="single-bit PBS", params="DEFAULT_128", batch=BATCH,
                keygen_s=keygen_s)
@@ -1228,7 +1279,7 @@ def phase_cycle():
     ng = n_groups(lwe.dim, GROUP_CBS)
     rounds = p.l1_params.log_degree * p.cbs_radix.count  # trace keyswitches
     want = expect_launches(
-        accumulate_decompose=ng, mad_horner_g2=ng, fence=8,
+        accumulate_decompose=ng, mad_horner_g2=ng, phase_factors=1,
         fwd_ds=ng + rounds + 3 + 1,  # rotation, trace, scheme switch (b, digits, GLEV), CMux
         inv_ds=ng + rounds + 1,  # rotation, trace, CMux
         freq_mad_batched=1,  # the CMux under the CBS output's batched row
@@ -1352,8 +1403,8 @@ def cbs_launches(p) -> dict:
 
     ng = n_groups(p.l0_params.dim, GROUP_CBS)
     rounds = p.l1_params.log_degree * p.cbs_radix.count
-    return dict(accumulate_decompose=ng, mad_horner_g2=ng, fence=8, fwd_ds=ng + rounds + 3,
-                inv_ds=ng + rounds)
+    return dict(accumulate_decompose=ng, mad_horner_g2=ng, phase_factors=1,
+                fwd_ds=ng + rounds + 3, inv_ds=ng + rounds)
 
 
 def schedule_launches(p, *scheds) -> dict:

@@ -44,6 +44,50 @@
 // permutation sends bin m to row perm_inv[m]: the gather the TPU ran after
 // its kernel, fused into the store. Any B is taken.
 
+// ---------------------------------------------------------------------------
+// phase_factors_kernel: the hoisted phase factors of every step of a blind
+// rotation, (lo, hi) with phase[r] = hi[r / Klo] · lo[r % Klo] in the
+// port's bit-reversed frequency order (Klo = 2^⌊J/2⌋, Khi = K / Klo).
+//
+// Replaces no Pallas kernel: on the TPU spf_tpu/ops/phase_rot.py::
+// phase_factors_all (:364) is XLA glue. It exists because the same work in
+// PyTorch operators (ds32 multiplies by doubling, table gathers,
+// concatenations, a copying reshape) takes ~900 launches a call at the
+// PBS's shape. Its store is also the materialisation that the TPU's
+// `fence` makes, so the port's rotations call no fence.
+//
+// Bit for bit with spf_tpu_torch/ops/phase_rot.py::phase_factors_all_plain
+// by the rule above: lo[m] is C = psi^(a mod 2N) multiplied by q_j for each
+// set bit j of m (j < ⌊J/2⌋), hi[m] is one = (1, 0, 0, 0) multiplied by
+// q_(⌊J/2⌋ + j) for each set bit j of m, in increasing j, each product
+// cmul(previous, q), with q_j = psi^(−a·4·2^(J−1−j) mod 2N) (bit j's
+// image in the bit-reversed order) looked up in the same 2N-entry table
+// at the same integer index.
+//
+// What bounds it on an H100: the output, 16·(Klo + Khi) bytes a (step,
+// column), 1,340,080,128 bytes at the PBS's [639, 2048] (0.40 ms at 3.35
+// TB/s). Its work is Klo + Khi − 2 = 62 complex ds multiplies a (step,
+// column) in the doubling, 4.6 G f32 instructions there (0.14 ms at
+// 33.45 T/s).
+//
+// Design: a block is one step x COLS columns x T low indices, T =
+// 2^(mlo − H) + 2^(mhi − H) (mlo, mhi = the halves' bit counts, H =
+// FACTOR_LEVELS, at most the half's bits): 16 at K = 1024, so 512 threads
+// at COLS = FACTOR_COLS = 32, a warp along B. COLS is the least power of
+// two >= B, at most 32, halved while the grid has fewer than MIN_BLOCKS
+// blocks, so that a narrow or short call (the CBS's waves, a single step)
+// still spreads over the SMs; nothing else changes with the shape. The
+// block first stages its columns' C and q_0 .. q_{J−1} in shared memory
+// (one entry a thread at K = 1024), one barrier; then a thread takes a low
+// index r of one half, forms its bin r from the half's seed by the
+// multiplies of r's set bits (lowest first) and the last H levels of the
+// doubling in registers, which gives it the 2^H bins r + i·2^(m − H):
+// ~1.1 multiplies a bin at K = 1024. Each bin's 4 planes are stored along
+// B, a warp's store one whole 128-byte line of a plane's row; a 16-byte
+// vector store would cut instructions, not bytes, and an SM runs ~0.1
+// store instructions a clock at the bound. Streaming stores: the rotation
+// reads a step's factors once, long after. Any B is taken.
+
 #include <cstdint>
 
 #include "common.cuh"
@@ -184,6 +228,89 @@ int launch_levels(const long long* t, table tab, const int* perm_inv, float* orh
   return launch_cols<H>(t, tab, perm_inv, orh, orl, oih, oil, log_k, b, stream);
 }
 
+// ---------------------------------------------------------------------------
+// phase_factors_kernel (see the head of this file)
+
+constexpr int FACTOR_COLS = 32;       // columns a block at most: a warp along B
+constexpr int FACTOR_LEVELS = 2;      // H: doubling levels in registers (2^H bins a thread)
+constexpr int FACTOR_MAX_LOG_K = 11;  // K <= 2048: J + 1 <= MAX_ENTRIES entries staged
+constexpr int FACTOR_THREADS = 768;   // the most a block: 32 columns x T = 8 + 16 at K = 2048
+
+struct half_shape {
+  int bits, levels, lows;  // m, min(H, m), 2^(m − levels)
+};
+
+__host__ __device__ inline half_shape half_of(int bits) {
+  const int levels = bits < FACTOR_LEVELS ? bits : FACTOR_LEVELS;
+  return {bits, levels, 1 << (bits - levels)};
+}
+
+// a block of COLS x T threads (blockDim.x = COLS): one step, COLS columns;
+// threadIdx.y < lo.lows takes the lo half's low index threadIdx.y, the
+// rest the hi half's
+__global__ void __launch_bounds__(FACTOR_THREADS)
+    phase_factors_kernel(const long long* __restrict__ a, table tab, float* __restrict__ lo,
+                         float* __restrict__ hi, int log_k, int steps, int b, int col_blocks) {
+  __shared__ float stage[4][MAX_ENTRIES][FACTOR_COLS];  // entry 0: C; entry 1 + j: q_j
+  const int cols = blockDim.x;
+  const int step = blockIdx.x / col_blocks;
+  const int c0 = (blockIdx.x - step * col_blocks) * cols;
+  const int tid = threadIdx.y * cols + threadIdx.x;
+  const uint32_t mask = (4u << log_k) - 1;  // 2N − 1
+  const long long* row = a + (size_t)step * b;
+  const int n_entries = (log_k + 1) * cols;
+  for (int i = tid; i < n_entries; i += cols * blockDim.y) {
+    // C = psi^a; q_j = psi^(−a·2^(J+1−j) mod 2N), entry e = 1 + j
+    const int e = i / cols;
+    const int col = i - e * cols;
+    const uint32_t ai = (uint32_t)(unsigned long long)row[min(c0 + col, b - 1)];
+    const uint32_t idx = (e == 0 ? ai : 0u - (ai << (log_k + 2 - e))) & mask;
+    stage[0][e][col] = __ldg(tab.rh + idx);
+    stage[1][e][col] = __ldg(tab.rl + idx);
+    stage[2][e][col] = __ldg(tab.ih + idx);
+    stage[3][e][col] = __ldg(tab.il + idx);
+  }
+  __syncthreads();
+  const int c = c0 + threadIdx.x;
+  if (c >= b) return;
+  const int j_half = log_k / 2;
+  const half_shape hl = half_of(j_half), hh = half_of(log_k - j_half);
+  const bool is_hi = (int)threadIdx.y >= hl.lows;
+  const half_shape h = is_hi ? hh : hl;
+  const uint32_t r = is_hi ? threadIdx.y - hl.lows : threadIdx.y;
+  const int q0 = is_hi ? 1 + j_half : 1;  // the entry of the half's q for its bit 0
+  const int low = h.bits - h.levels;
+  auto entry = [&](int e) {
+    return dsc{stage[0][e][threadIdx.x], stage[1][e][threadIdx.x], stage[2][e][threadIdx.x],
+               stage[3][e][threadIdx.x]};
+  };
+
+  dsc loc[1 << FACTOR_LEVELS];
+  loc[0] = is_hi ? dsc{1.0f, 0.0f, 0.0f, 0.0f} : entry(0);
+  for (uint32_t bits = r; bits; bits &= bits - 1)  // r's set bits, lowest first
+    loc[0] = cmul(loc[0], entry(q0 + __ffs(bits) - 1));
+#pragma unroll
+  for (int lv = 0; lv < FACTOR_LEVELS; ++lv) {
+    if (lv < h.levels) {
+      const dsc qj = entry(q0 + low + lv);
+#pragma unroll
+      for (int i = 0; i < (1 << lv); ++i) loc[i + (1 << lv)] = cmul(loc[i], qj);
+    }
+  }
+  float* out = is_hi ? hi : lo;
+  const size_t plane = ((size_t)steps << h.bits) * b;  // [steps, 2^m, B]
+#pragma unroll
+  for (int i = 0; i < (1 << FACTOR_LEVELS); ++i) {
+    if (i < (1 << h.levels)) {
+      float* o = out + (((size_t)step << h.bits) + r + ((uint32_t)i << low)) * b + c;
+      __stcs(o, loc[i].rh);
+      __stcs(o + plane, loc[i].rl);
+      __stcs(o + 2 * plane, loc[i].ih);
+      __stcs(o + 3 * plane, loc[i].il);
+    }
+  }
+}
+
 }  // namespace
 
 // t int64 [B]; the psi table, 4 planes [2N]; perm_inv int32 [K] or null;
@@ -198,4 +325,28 @@ extern "C" int spf_phase_minus_one(const long long* t, const float* tab_rh, cons
   while ((1 << log_k) < k) ++log_k;
   const table tab{tab_rh, tab_rl, tab_ih, tab_il};
   return launch_levels(t, tab, perm_inv, orh, orl, oih, oil, log_k, b, (cudaStream_t)stream);
+}
+
+// a int64 [steps, B] (only a mod 2N is read); the psi table, 4 planes [2N];
+// lo 4 planes [steps, Klo, B] and hi 4 planes [steps, Khi, B], each one
+// contiguous [4, steps, K_half, B] tensor. K a power of two in [2, 2048].
+extern "C" int spf_phase_factors(const long long* a, const float* tab_rh, const float* tab_rl,
+                                 const float* tab_ih, const float* tab_il, float* lo, float* hi,
+                                 int k, int steps, int b, void* stream) {
+  if (k < 2 || k > (1 << FACTOR_MAX_LOG_K) || (k & (k - 1)) || steps < 1 || b < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int log_k = 0;
+  while ((1 << log_k) < k) ++log_k;
+  const int j_half = log_k / 2;
+  const int t = half_of(j_half).lows + half_of(log_k - j_half).lows;
+  int cols = FACTOR_COLS;  // the least power of two >= B, at most FACTOR_COLS
+  while (cols > 1 && b <= cols / 2) cols /= 2;
+  auto blocks = [&](int nc) { return (long long)steps * ((b + nc - 1) / nc); };
+  while (cols > 1 && blocks(cols) < MIN_BLOCKS) cols /= 2;
+  if (blocks(cols) > 0x7fffffffLL || cols * t > FACTOR_THREADS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const table tab{tab_rh, tab_rl, tab_ih, tab_il};
+  phase_factors_kernel<<<(unsigned)blocks(cols), dim3(cols, t), 0, (cudaStream_t)stream>>>(
+      a, tab, lo, hi, log_k, steps, b, (b + cols - 1) / cols);
+  return spf_last_error();
 }

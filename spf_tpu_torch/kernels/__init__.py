@@ -40,6 +40,7 @@ FREQ_MAD_BATCHED = Kernel("mad", "spf_freq_mad_batched", "p" * 13 + "iiiii" + "q
                           ("mad_batched_kernel",))
 FENCE = Kernel("fence", "spf_fence", "ppip", ("copy_kernel",))
 PHASE_MINUS_ONE = Kernel("phase", "spf_phase_minus_one", "p" * 10 + "iip", ("phase_kernel",))
+PHASE_FACTORS = Kernel("phase", "spf_phase_factors", "p" * 7 + "iiip", ("phase_factors_kernel",))
 # the probes of spf_tpu_torch.scripts.vpu_probe
 CHAIN = Kernel("probe", "spf_chain", "ppiiip", ("chain_kernel",))
 FMA_PROBE = Kernel("probe", "spf_fma_probe", "pppiiip", ("fma_probe_kernel",))
@@ -60,6 +61,7 @@ ALL = {
     "freq_mad_batched": FREQ_MAD_BATCHED,
     "fence": FENCE,
     "phase_minus_one": PHASE_MINUS_ONE,
+    "phase_factors": PHASE_FACTORS,
     "chain": CHAIN,
     "fma_probe": FMA_PROBE,
     "fma_probe_fma": FMA_PROBE_FMA,

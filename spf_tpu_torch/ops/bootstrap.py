@@ -29,7 +29,7 @@ from torch import nn
 from ..params import GlweDef, RadixDecomposition
 from . import fft, torus
 from .mad import freq_mad, freq_mad_batched, mad_horner
-from .phase_rot import fence, phase_factors_all
+from .phase_rot import phase_factors_all
 from .rot_decomp import accumulate_decompose, rotate_sub_decompose, rotate_sub_decompose_acc
 
 
@@ -119,8 +119,6 @@ def blind_rotate(lut, ct_switched, bsk_freq, glwe: GlweDef, radix: RadixDecompos
 
     # phase_rot: the per-step (phase - 1) factors of every step, hoisted
     ph_lo, ph_hi = phase_factors_all(a, n)
-    ph_lo = tuple(fence(c) for c in ph_lo)
-    ph_hi = tuple(fence(c) for c in ph_hi)
     for i in range(a.shape[0]):
         digits, acc = accumulate_decompose(acc, prod, radix)
         dfft = fft.fwd_ds(digits, digits_lo)

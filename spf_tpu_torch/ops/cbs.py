@@ -18,7 +18,7 @@ same stacked tables. `ConversionCycle` is the cycle that
 under the GGSW, sample extraction and the L1 -> L0 LWE keyswitch.
 
 Kernels on this path: the blind rotation's (multi-bit at the key's
-group size: `accumulate_decompose`, `mad_horner`, the FFTs, `fence`),
+group size: `accumulate_decompose`, `mad_horner`, the FFTs, `phase_factors`),
 the forward and inverse FFTs of every keyswitch, the scheme switch and
 the CMux, and the CMux's MAD under the batched row of the CBS output
 (`freq_mad_batched`). The keyswitch and scheme-switch MADs are plain

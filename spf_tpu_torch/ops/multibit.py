@@ -30,7 +30,7 @@ from ..params import GlweDef, RadixDecomposition
 from . import fft, torus
 from .bootstrap import as_tensor, register_spectra, sample_extract, spectra
 from .mad import mad_horner
-from .phase_rot import fence, phase_factors_all
+from .phase_rot import phase_factors_all
 from .rot_decomp import accumulate_decompose
 
 
@@ -70,7 +70,7 @@ def padded_mask(ct_switched, group: int):
 def group_phases(a, n: int, group: int):
     """The per-bit (phase - 1) outer-product factors of every step of the
     padded mask a [ng*g, B]: (lo, hi), 4 planes [ng, g, Klo, B] and
-    [ng, g, Khi, B]."""
+    [ng, g, Khi, B], views of `phase_factors_all`'s contiguous planes."""
     ng = a.shape[0] // group
     ph_lo, ph_hi = phase_factors_all(a, n)
     return (tuple(c.reshape(ng, group, *c.shape[1:]) for c in ph_lo),
@@ -108,7 +108,7 @@ def blind_rotate_multibit(lut, ct_switched, bsk_freq, glwe: GlweDef,
 
     acc = torus.monomial_mul(lut.expand(kp1, n, bb), 2 * n - ct_switched[-1])
     # per-bit (phase - 1) outer-product factors of every step, hoisted
-    ph_lo, ph_hi = (tuple(fence(c) for c in x) for x in group_phases(a, n, group))
+    ph_lo, ph_hi = group_phases(a, n, group)
     return rotate_groups(acc, ph_lo, ph_hi, bsk_freq, radix, group)
 
 

@@ -13,13 +13,17 @@ same halves in registers, `mad.mad_horner`).
 The port's FFT emits plain bit-reversed order, so the bit images here are
 always the bit reversal (the reference's `use_pallas=True` order), and
 the doubling seeds are exact lookups into one 2N-entry ds table (the
-reference's CPU formulation; gathers are cheap on a GPU).
+reference's CPU formulation; gathers are cheap on a GPU). On the card
+one kernel builds the factors of every step (`csrc/phase.cu`,
+`phase_factors_kernel`) and stores them straight into the layout the MAD
+reads, one contiguous tensor a half, so the rotation copies nothing.
 
 The in-loop generator `phase_minus_one` builds one step's (phase − 1)
 over the K bins by the serial geometric doubling C·Q^m (≙
-`phase_minus_one_pallas`; the CUDA kernel is `csrc/phase.cu`). No path of
-the port runs it: the blind rotations use the hoisted factors. It is
-timed against them by `spf_tpu_torch.scripts.step_microbench`.
+`phase_minus_one_pallas`; the CUDA kernel is `phase_kernel` in the same
+source). No path of the port runs it: the blind rotations use the
+hoisted factors. It is timed against them by
+`spf_tpu_torch.scripts.step_microbench`.
 """
 
 from __future__ import annotations
@@ -54,14 +58,19 @@ def backend_bit_images(n: int):
     return tuple(1 << (j_count - 1 - j) for j in range(j_count))
 
 
-def phase_factors_all(a: torch.Tensor, n: int):
-    """Hoisted outer-product factors of the rotation phases of every
-    step: a int64 [steps, B] (exponents < 2N) -> (lo, hi), 4-tuples of
-    f32 [steps, Klo, B] / [steps, Khi, B] with, for every step,
+MAX_FACTOR_K = 2048  # the largest K the phase factors kernel takes
 
-        phase[r] = hi[r // Klo] * lo[r % Klo]        (before the -1)
 
-    in bit-reversed frequency order."""
+def factor_halves(n: int):
+    """(Klo, Khi) of the hoisted phase factors at degree N: Klo =
+    2^floor(J/2), Khi = K / Klo, J = log2(N/2)."""
+    j_count = int(np.log2(n // 2))
+    return 1 << (j_count // 2), 1 << (j_count - j_count // 2)
+
+
+def phase_factors_all_plain(a: torch.Tensor, n: int):
+    """The plain version of `phase_factors_all`: the lookups and the
+    doubling in PyTorch operators."""
     two_n = 2 * n
     j_count = int(np.log2(n // 2))
     j_half = j_count // 2
@@ -80,13 +89,53 @@ def phase_factors_all(a: torch.Tensor, n: int):
         for j in range(j_lo, j_hi):
             shifted = ds.cmul(seq, tuple(c[None] for c in qjs[j]))
             seq = tuple(torch.cat([x, y], dim=0) for x, y in zip(seq, shifted))
-        return tuple(torch.movedim(c, 0, 1) for c in seq)  # [steps, m, B]
+        return tuple(torch.stack(seq).movedim(1, 2).contiguous().unbind(0))  # [steps, m, B]
 
     zeros = torch.zeros(a.shape, dtype=torch.float32, device=a.device)
     one = (torch.ones_like(zeros), zeros, zeros, zeros)
     lo = doubling(0, j_half, seed)  # C * Q^(low bits)
     hi = doubling(j_half, j_count, one)  # Q^(high bits)
     return lo, hi
+
+
+def _phase_factors_cuda(a, n):
+    a = a.contiguous()
+    check_cuda("phase_factors_all", a, dtype=torch.int64)
+    steps, b = a.shape
+    klo, khi = factor_halves(n)
+    tabs = _psi_table(2 * n, a.device)
+    lo, hi = (torch.empty((4, steps, kh, b), dtype=torch.float32, device=a.device)
+              for kh in (klo, khi))
+    kernels.PHASE_FACTORS(
+        a.data_ptr(), *(c.data_ptr() for c in tabs), lo.data_ptr(), hi.data_ptr(),
+        n // 2, steps, b, stream_of(a),
+    )
+    return tuple(lo.unbind(0)), tuple(hi.unbind(0))
+
+
+def phase_factors_all(a: torch.Tensor, n: int):
+    """Hoisted outer-product factors of the rotation phases of every
+    step: a int64 [steps, B] (exponents < 2N; only a mod 2N is read) ->
+    (lo, hi), 4-tuples of f32 [steps, Klo, B] / [steps, Khi, B]
+    (`factor_halves`) with, for every step,
+
+        phase[r] = hi[r // Klo] * lo[r % Klo]        (before the -1)
+
+    in bit-reversed frequency order. Each 4-tuple is the planes of one
+    contiguous [4, steps, K_half, B] tensor, so a step's slice or a
+    reshape of the steps is a view. The CUDA kernel on CUDA tensors,
+    `phase_factors_all_plain` on CPU tensors; N a power of two with
+    2 <= K <= MAX_FACTOR_K."""
+    k = n // 2
+    if k < 2 or k > MAX_FACTOR_K or n & (n - 1):
+        raise ValueError(f"phase_factors_all: N = {n}: K = N/2 must be a power of two in "
+                         f"[2, {MAX_FACTOR_K}]")
+    if a.dtype != torch.int64:
+        raise TypeError(f"phase_factors_all: a must be int64, got {a.dtype}")
+    if a.dim() != 2 or a.numel() == 0:
+        raise ValueError(f"phase_factors_all: a shape {tuple(a.shape)}, want [steps, B], "
+                         "both at least 1")
+    return dispatch("phase_factors_all", a, _phase_factors_cuda, phase_factors_all_plain, a, n)
 
 
 def combine_phase_minus_one(lo_t, hi_t):
@@ -255,8 +304,11 @@ def _fence_cuda(x):
 
 
 def fence(x: torch.Tensor) -> torch.Tensor:
-    """A contiguous copy of the hoisted phase factors (≙ `phase_rot.fence`,
-    which on the TPU stops XLA from recomputing them inside the loop;
-    eager PyTorch recomputes nothing, so here it only materializes the
-    copy). The CUDA kernel on CUDA tensors, `clone` on CPU tensors."""
+    """A contiguous copy (≙ `phase_rot.fence`, which on the TPU stops XLA
+    from recomputing the hoisted phase factors inside the loop). The
+    blind rotations do not call it: eager PyTorch recomputes nothing, and
+    the phase factors kernel's own store is the materialisation. It stays
+    as the port of the TPU's kernel, which `scripts.gap_probe2` runs as
+    its `opaque_materialize`. The CUDA kernel on CUDA tensors, `clone` on
+    CPU tensors."""
     return dispatch("fence", x, _fence_cuda, fence_plain, x)

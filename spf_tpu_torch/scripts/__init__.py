@@ -4,7 +4,7 @@ of `examples/op_noise.py`:
 - `step_microbench` (≙ `scripts/tpu_step_microbench.py`): the components
   of one blind-rotation step, the in-loop phase generator among them;
 - `gap_probe2` (≙ `scripts/gap_probe2.py`): the per-group cost of the
-  multi-bit rotation with its phases hoisted and fenced;
+  multi-bit rotation with its phases hoisted (and, in one variant, fenced);
 - `vpu_probe` (≙ `scripts/vpu_probe.py`): the card's f32 and i32 chain
   rates, the fma question, matrix-product rates and a roll;
 - `kernel_ab` (the port's own): designs of a kernel source (`fft.cu`,

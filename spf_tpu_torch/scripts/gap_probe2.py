@@ -11,17 +11,18 @@ time); per variant one JSON line with wall and device us per group, the
 kernel launches of one call and of all five:
 
 1. "multibit.blind_rotate_multibit": the port's rotation as it is (it
-   builds the phases inside the call and fences them);
+   builds the phases inside the call, one launch of the phase factors
+   kernel, whose store is their materialisation);
 2. "hoisted phases (precomputed input)": the same group steps
    (`multibit.rotate_groups`) on phase factors built before the call;
 3. "in-call phases + opaque_materialize": the phases built inside the
    call and passed through `opaque_materialize`, which on the card is the
    port's fence kernel (`csrc/fence.cu`): the Pallas body of the script's
    `opaque_materialize` is the same identity copy as `phase_rot.fence`'s.
-   On the port this is variant 1 written out: `blind_rotate_multibit`
-   already builds its phases inside the call and passes them through the
-   same fence, so the two make the same launches and should take the same
-   time; the variant stays as the script's, to show that they do.
+   On the port this is variant 1 plus one fence copy of each of the 8
+   factor planes, which the rotation itself no longer makes; the variant
+   stays as the script's, and the difference from variant 1 is what the
+   copies cost.
 
 Their split between host and device time says how much of a group step
 is host dispatch, which a CUDA graph would remove. The script's variant

@@ -19,6 +19,12 @@ of PHASE_BS (B = 1 and 8 narrow column tiles with one register level,
 B = 33 one live column in its last tile), in natural and in scrambled
 order, t at its edges and beyond 2N (`exponents`).
 
+`phase_factors` (the hoisted phase factors of every step) is one step x
+COLS columns x T low indices a block, COLS narrowed at a small B or a
+short grid: every K of PHASE_KS (K = 2 and 8 with halves of fewer bits
+than its register levels, odd log2 K with Klo != Khi) with B = 1 and 33
+(FACTOR_BS), FACTOR_STEPS steps, a at its edges and beyond 2N.
+
 `fma_probe` splits its n elements into a scalar head, 16-byte vectors and
 a scalar tail where a, b and e share their offset from a 16-byte
 boundary, and takes every element scalar where they do not
@@ -30,11 +36,12 @@ operand are FMA_SPECIAL's pairs: ±0, ±inf, NaN, subnormals, products
 that overflow and products that underflow (where the fma error is no
 longer the exact error). NaN equals NaN whatever its payload.
 
-`check_roll(gen)` / `check_phase(gen)` / `check_fma(gen)` run them on the
-generator's device and return {"checked": n, "not_bitexact": [labels]};
-`chip_smoke.py` phase 3 and `kernel_ab --source probe|phase --check` call
-them with a CUDA generator (on CPU tensors the wrappers run their plain
-versions).
+`check_roll(gen)` / `check_phase(gen)` / `check_phase_factors(gen)` /
+`check_fma(gen)` run them on the generator's device and return
+{"checked": n, "not_bitexact": [labels]}; `chip_smoke.py` phase 3 calls
+them all and `kernel_ab --source probe|phase --check` all but
+`check_phase_factors`, with a CUDA generator (on CPU tensors the wrappers
+run their plain versions).
 """
 
 from __future__ import annotations
@@ -75,6 +82,8 @@ FMA_SPECIAL = tuple(itertools.product(_SPECIAL, repeat=2)) + tuple(
     (x * 2.0**-70, y * 2.0**-70) for x, y in itertools.product((1.1, 1.7, 1.9), (1.3, 1.45)))
 PHASE_KS = (2, 4, 8, 64, 1024, 2048)
 PHASE_BS = (1, 8, 33, 256)
+FACTOR_BS = (1, 33)
+FACTOR_STEPS = 3
 
 
 def exponents(n: int, b: int, gen) -> torch.Tensor:
@@ -116,6 +125,21 @@ def check_phase(gen) -> dict:
                 if not _same(phase_rot.phase_minus_one(t, n, perm),
                              phase_rot.phase_minus_one_plain(t, n, perm)):
                     bad.append(f"K={k} B={b} {'natural' if perm is None else 'scrambled'}")
+    return dict(checked=n_checked, not_bitexact=bad)
+
+
+def check_phase_factors(gen) -> dict:
+    """`phase_factors_all` at every K of PHASE_KS x B of FACTOR_BS against
+    `phase_factors_all_plain`, bit for bit."""
+    bad, n_checked = [], 0
+    for k in PHASE_KS:
+        n = 2 * k
+        for b in FACTOR_BS:
+            a = torch.stack([exponents(n, b, gen) for _ in range(FACTOR_STEPS)])
+            n_checked += 1
+            got = sum(phase_rot.phase_factors_all(a, n), ())
+            if not _same(got, sum(phase_rot.phase_factors_all_plain(a, n), ())):
+                bad.append(f"K={k} B={b}")
     return dict(checked=n_checked, not_bitexact=bad)
 
 

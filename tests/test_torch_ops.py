@@ -230,19 +230,71 @@ def test_mad_kp1_covers_every_glwe_set(package):
 def test_phase_factors_match_reference():
     """phase_factors_all (bit-reversed order) and combine_phase_minus_one
     == phase_rot's `use_pallas=True` order, op by op (eagerly), bit for
-    bit."""
-    n = 64
+    bit: at N = 64 (K = 32: Klo = 4, Khi = 8) and N = 256 (K = 128, also
+    odd log2 K: Klo = 8, Khi = 16)."""
     rng = np.random.default_rng(9)
-    a = rng.integers(0, 2 * n, size=(18, 8))
-    lo, hi = phase_rot.phase_factors_all(torch.from_numpy(a), n)
-    jlo, jhi = jpr.phase_factors_all(jnp.asarray(a.astype(np.uint32)), n, use_pallas=True)
-    _eq_planes(lo, jlo)
-    _eq_planes(hi, jhi)
-    for t in (0, 17):
-        got = phase_rot.combine_phase_minus_one(tuple(c[t] for c in lo), tuple(c[t] for c in hi))
-        want = jpr.combine_phase_minus_one(tuple(c[t] for c in jlo), tuple(c[t] for c in jhi))
-        _eq_planes(got, want)
-    assert phase_rot.backend_bit_images(n) == jpr.backend_bit_images(n, use_pallas=True)
+    for n, shape, steps in ((64, (18, 8), (0, 17)), (256, (5, 3), (0, 4))):
+        a = rng.integers(0, 2 * n, size=shape)
+        lo, hi = phase_rot.phase_factors_all(torch.from_numpy(a), n)
+        assert (lo[0].shape[1], hi[0].shape[1]) == phase_rot.factor_halves(n)
+        jlo, jhi = jpr.phase_factors_all(jnp.asarray(a.astype(np.uint32)), n, use_pallas=True)
+        _eq_planes(lo, jlo)
+        _eq_planes(hi, jhi)
+        for t in steps:
+            got = phase_rot.combine_phase_minus_one(tuple(c[t] for c in lo),
+                                                    tuple(c[t] for c in hi))
+            want = jpr.combine_phase_minus_one(tuple(c[t] for c in jlo),
+                                               tuple(c[t] for c in jhi))
+            _eq_planes(got, want)
+        assert phase_rot.backend_bit_images(n) == jpr.backend_bit_images(n, use_pallas=True)
+
+
+def test_phase_factors_layout():
+    """Each half is the 4 planes of one contiguous [4, steps, K_half, B]
+    tensor, as the kernel stores them; the multi-bit rotation's
+    `group_phases` and a step's slice are views of them (no copy)."""
+    from spf_tpu_torch.ops import multibit
+
+    n, group, ng, b = 256, 3, 4, 5
+    a = torch.from_numpy(np.random.default_rng(3).integers(0, 2 * n, size=(ng * group, b)))
+    halves = phase_rot.phase_factors_all(a, n)
+    grouped = multibit.group_phases(a, n, group)
+
+    def one_tensor(planes):  # the 4 planes at their offsets in one storage
+        base = planes[0].untyped_storage().data_ptr()
+        assert all(c.is_contiguous() and c.untyped_storage().data_ptr() == base for c in planes)
+        assert [c.data_ptr() - base for c in planes] == [p * planes[0].numel() * 4
+                                                         for p in range(4)]
+
+    for planes, g_planes, kh in zip(halves, grouped, phase_rot.factor_halves(n)):
+        assert all(c.shape == (ng * group, kh, b) for c in planes)
+        one_tensor(planes)
+        one_tensor(g_planes)  # group_phases' reshape is a view
+        for c, gc in zip(planes, g_planes):
+            assert gc.shape == (ng, group, kh, b)
+            assert torch.equal(gc.reshape(c.shape), c)
+            assert gc[2].is_contiguous()  # a step's slice, as `rotate_groups` takes it
+
+
+@pytest.mark.parametrize("bad", ["dtype", "rank", "device", "empty", "n"])
+def test_phase_factors_refuses(bad):
+    """The wrapper refuses a non-int64 a, a rank other than 2, a device
+    that is neither the CPU nor CUDA, an empty a and an N whose K is not
+    a power of two in [2, 2048]."""
+    n = 64
+    a = torch.zeros((3, 4), dtype=torch.int64)
+    err = ValueError
+    if bad == "dtype":
+        a, err = a.int(), TypeError
+    elif bad == "rank":
+        a = a[0]
+    elif bad == "device":
+        a = a.to("meta")
+    elif bad == "empty":
+        a = a[:0]
+    for n in (2, 48, 8192) if bad == "n" else (n,):
+        with pytest.raises(err):
+            phase_rot.phase_factors_all(a, n)
 
 
 def test_fence_is_a_copy():
@@ -266,3 +318,5 @@ def test_wrappers_run_plain_only_on_cpu():
         mad.mad_horner(planes, planes, (planes, planes), 1)
     with pytest.raises(ValueError):
         phase_rot.fence(t)
+    with pytest.raises(ValueError):
+        phase_rot.phase_factors_all(t[0].long(), 64)

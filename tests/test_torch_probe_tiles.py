@@ -1,5 +1,6 @@
 """The block schedules of the probe kernels `roll` (`csrc/probe.cu`) and
-`phase_minus_one` (`csrc/phase.cu`), on the CPU.
+`phase_minus_one` (`csrc/phase.cu`), and of the hoisted phase factors'
+`phase_factors_kernel` (`csrc/phase.cu`), on the CPU.
 
 This test reads each kernel's constants from its source and runs its
 schedule in PyTorch, every thread of a launch at once, against the plain
@@ -21,6 +22,14 @@ version, bit for bit, at the edge shapes of
   indices, whose chains take different bits at once), H = min(REG_LEVELS, log2 K)
   levels in registers (1 at B <= NARROW_B), bin m stored at row perm^-1[m]; every output
   written once;
+- `phase_factors_kernel`: one step x COLS columns x T low indices a
+  block (COLS = FACTOR_COLS, or the least power of two >= B, halved while
+  the grid has fewer than MIN_BLOCKS blocks; T = the lo half's low
+  indices, then the hi half's), C and q_0 .. q_{J-1} of the block's
+  columns staged per block (the last column repeated past B), bin r of a
+  half from its seed (C, or one for hi) by r's set bits lowest first,
+  min(FACTOR_LEVELS, the half's bits) levels in registers; every output
+  of both [4, steps, K_half, B] tensors written once;
 - `fma_probe`: the wrapper's split (`vpu_probe.fma_split`) of n elements
   into a scalar head, 16-byte vectors and a scalar tail, or every element
   scalar, from the addresses of a, b and e, and the kernel's grid over it
@@ -59,6 +68,9 @@ FMA_THREADS, FMA_VEC = (_const("probe.cu", n) for n in ("FMA_THREADS", "FMA_VEC"
 THREADS, MIN_THREADS, MIN_BLOCKS, MAX_COLS, REG_LEVELS, NARROW_B, MAX_ENTRIES = (
     _const("phase.cu", n) for n in ("THREADS", "MIN_THREADS", "MIN_BLOCKS", "MAX_COLS",
                                     "REG_LEVELS", "NARROW_B", "MAX_ENTRIES"))
+FACTOR_COLS, FACTOR_LEVELS, FACTOR_MAX_LOG_K, FACTOR_THREADS = (
+    _const("phase.cu", n) for n in ("FACTOR_COLS", "FACTOR_LEVELS", "FACTOR_MAX_LOG_K",
+                                    "FACTOR_THREADS"))
 
 
 def roll_source(rows, cols, iters, shift):
@@ -216,6 +228,105 @@ def test_phase_schedule_matches_plain(k, b, order):
     assert (written == 1).all(), "an output written by no thread or by two"
     for g, w in zip(got, phase_rot.phase_minus_one_plain(t, n, perm)):
         np.testing.assert_array_equal(g.numpy().view(np.int32), w.numpy().view(np.int32))
+
+
+def factors_schedule(a, n):
+    """phase_factors_kernel's blocks, all at once -> ((lo, hi) 4 planes
+    each, written counts of lo and hi)."""
+    steps, b = a.shape
+    log_k = (n // 2).bit_length() - 1
+    assert log_k <= FACTOR_MAX_LOG_K and log_k + 1 <= MAX_ENTRIES
+    j_half = log_k // 2
+
+    def half(bits):  # (m, its register levels, its low indices)
+        levels = min(FACTOR_LEVELS, bits)
+        return bits, levels, 1 << (bits - levels)
+
+    hl, hh = half(j_half), half(log_k - j_half)
+    t = hl[2] + hh[2]
+    cols = FACTOR_COLS
+    while cols > 1 and b <= cols // 2:
+        cols //= 2
+    while cols > 1 and steps * -(-b // cols) < MIN_BLOCKS:
+        cols //= 2
+    assert cols * t <= FACTOR_THREADS
+    col_blocks = -(-b // cols)
+    nblocks = steps * col_blocks
+    mask = 2 * n - 1
+    tabs = phase_rot._psi_table(2 * n, torch.device("cpu"))
+
+    # the stage: [blocks, entries, cols] per plane, the last column repeated past B
+    bid = torch.arange(nblocks)
+    step, c0 = bid // col_blocks, (bid % col_blocks) * cols
+    col = torch.clamp(c0[:, None] + torch.arange(cols)[None, :], max=b - 1)
+    ai = a[step[:, None], col] & 0xFFFFFFFF  # the kernel's uint32 a
+    e = torch.arange(log_k + 1)[None, :, None]
+    idx = torch.where(e == 0, ai[:, None, :], -(ai[:, None, :] << (log_k + 2 - e))) & mask
+    stage = tuple(p[idx] for p in tabs)
+
+    blk, y, x = (torch.from_numpy(v) for v in np.meshgrid(
+        np.arange(nblocks), np.arange(t), np.arange(cols), indexing="ij"))
+    c = c0[blk] + x
+    live = c < b
+    blk, y, x, c = (v[live] for v in (blk, y, x, c))
+    is_hi = y >= hl[2]
+    r = torch.where(is_hi, y - hl[2], y)
+    q0 = torch.where(is_hi, 1 + j_half, 1)
+    bits_m = torch.where(is_hi, hh[0], hl[0])
+    levels = torch.where(is_hi, hh[1], hl[1])
+    low = bits_m - levels
+
+    def entry(ent):
+        ent = torch.clamp(ent, max=log_k)  # a lane past its half's levels reads no entry
+        return tuple(p[blk, ent, x] for p in stage)
+
+    zero = torch.zeros(r.shape)
+    seed = entry(torch.zeros_like(r))
+    loc = [tuple(torch.where(is_hi, o, s) for o, s in zip((zero + 1.0, zero, zero, zero), seed))]
+    bits = r.clone()
+    while bool((bits != 0).any()):  # one set bit a lane an iteration, lowest first
+        on = bits != 0
+        j = torch.where(on, (bits & -bits).float().log2().long(), 0)
+        prod = ds.cmul(loc[0], entry(q0 + j))
+        loc[0] = tuple(torch.where(on, p, q) for p, q in zip(prod, loc[0]))
+        bits = bits & (bits - 1)
+    for lvl in range(FACTOR_LEVELS):
+        qj = entry(q0 + low + lvl)
+        loc += [ds.cmul(loc[i], qj) for i in range(1 << lvl)]
+
+    step = step[blk]
+    outs, written = [], []
+    for (m, _, _), side in ((hl, ~is_hi), (hh, is_hi)):
+        outs.append(torch.full((4, steps, 1 << m, b), float("nan")))
+        written.append(torch.zeros((steps, 1 << m, b), dtype=torch.int64))
+    for i, v in enumerate(loc):
+        stored = i < (1 << levels)
+        binr = r + (i << low)
+        for h, side in enumerate((~is_hi, is_hi)):
+            sel = stored & side
+            at = (step[sel], binr[sel], c[sel])
+            for p in range(4):
+                outs[h][p][at] = v[p][sel]
+            written[h].index_put_(at, torch.ones_like(at[0]), accumulate=True)
+    return tuple(tuple(o.unbind(0)) for o in outs), written
+
+
+FACTOR_SHAPES = [(k, b, 3) for k in (2, 4, 8, 32, 64, 1024, 2048) for b in (1, 33, 256)] + [
+    (64, 1024, 5), (1024, 1024, 5)]  # the last two keep FACTOR_COLS columns a block
+
+
+@pytest.mark.parametrize("k,b,steps", FACTOR_SHAPES)
+def test_phase_factors_schedule_matches_plain(k, b, steps):
+    n = 2 * k
+    gen = torch.Generator().manual_seed(k * 1000 + b)
+    a = torch.stack([probe_edges.exponents(n, b, gen) for _ in range(steps)])
+    got, written = factors_schedule(a, n)
+    for w in written:
+        assert (w == 1).all(), "an output written by no thread or by two"
+    want = phase_rot.phase_factors_all_plain(a, n)
+    for g_half, w_half in zip(got, want):
+        for g, w in zip(g_half, w_half):
+            np.testing.assert_array_equal(g.numpy().view(np.int32), w.numpy().view(np.int32))
 
 
 def fma_schedule(n, head, nvec):
