@@ -23,6 +23,11 @@ the forward and inverse FFTs of every keyswitch, the scheme switch and
 the CMux, and the CMux's MAD under the batched row of the CBS output
 (`freq_mad_batched`). The keyswitch and scheme-switch MADs are plain
 PyTorch, as they are XLA glue on the TPU.
+
+Each stage runs inside a span of `utils.profiling` (`cbs.rotate`,
+`cbs.levels`, `cbs.trace`, `cbs.scheme_switch`, `cycle.cmux`,
+`cycle.keyswitch`), and `metrics` counts `cbs.calls` and `cbs.lanes` a
+circuit bootstrap and `cbs.glwe_keyswitches` a GLWE keyswitch.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ import torch
 from torch import nn
 
 from ..params import GlweDef, Params, RadixDecomposition
+from ..utils.profiling import metrics, span
 from . import ds, torus
 from .bootstrap import (
     as_tensor,
@@ -81,6 +87,7 @@ def multifunctional_cbs_lut_np(glwe: GlweDef, cbs_radix: RadixDecomposition) -> 
 def keyswitch_glwe(ct: torch.Tensor, ksk_row, glwe: GlweDef, radix: RadixDecomposition):
     """GLWE keyswitch: ct int64 [k+1, N, B], key spectra 4 planes
     [k, l, k+1, K] -> int64 [k+1, N, B] (≙ `cbs_u32.keyswitch_glwe_u32`)."""
+    metrics.inc("cbs.glwe_keyswitches")
     k = glwe.size
     a, b = ct[:-1], ct[-1]
     dfft = fwd_signed(torus.decompose(a, radix))  # [l, k, K, B]
@@ -97,10 +104,12 @@ def keyswitch_glwe(ct: torch.Tensor, ksk_row, glwe: GlweDef, radix: RadixDecompo
 
 
 @functools.lru_cache(maxsize=8)
-def _trace_tables_np(n: int):
-    """Per-round X -> X^k tables of the trace: for round r (1-based),
-    k = N/2^(r-1) + 1; src[r-1, d] is the coefficient that lands at d and
-    neg[r-1, d] its negacyclic sign (≙ `cbs_u32._trace_tables`)."""
+def _trace_tables(n: int, device: torch.device):
+    """Per-round X -> X^k tables of the trace, on `device`: for round r
+    (1-based), k = N/2^(r-1) + 1; src[r-1, d] is the coefficient that lands
+    at d and neg[r-1, d] its negacyclic sign (≙ `cbs_u32._trace_tables`).
+    Copied once: a copy from the host waits for every operation queued
+    before it, so one a round made the host wait for the device."""
     rounds = n.bit_length() - 1
     src = np.zeros((rounds, n), dtype=np.int64)
     neg = np.zeros((rounds, n), dtype=bool)
@@ -110,24 +119,24 @@ def _trace_tables_np(n: int):
         dest = (i * k_exp) % n
         src[r - 1, dest] = i
         neg[r - 1, dest] = ((i * k_exp) // n) % 2 == 1
-    return src, neg
+    return torch.from_numpy(src).to(device), torch.from_numpy(neg).to(device)
 
 
+@span("cbs.trace")
 def trace(ct: torch.Tensor, auto_keys_freq, glwe: GlweDef, radix: RadixDecomposition):
     """Homomorphic trace: log2(N) rounds of (X -> X^k, GLWE keyswitch,
     add); auto_keys_freq 4 planes [log2 N, k, l, k+1, K]
     (≙ `cbs_u32.trace_u32`)."""
-    src, neg = _trace_tables_np(glwe.degree)
+    src, neg = _trace_tables(glwe.degree, ct.device)
     for r in range(src.shape[0]):
-        s = torch.from_numpy(src[r]).to(ct.device)
-        ng = torch.from_numpy(neg[r]).to(ct.device)[:, None]
-        mapped = ct[..., s, :]
-        mapped = torch.where(ng, -mapped, mapped)
+        mapped = ct[..., src[r], :]
+        mapped = torch.where(neg[r][:, None], -mapped, mapped)
         ks = keyswitch_glwe(mapped, tuple(c[r] for c in auto_keys_freq), glwe, radix)
         ct = torus.add(ct, ks)
     return ct
 
 
+@span("cbs.scheme_switch")
 def scheme_switch(glev: torch.Tensor, ssk_freq, glwe: GlweDef,
                   radix_ggsw: RadixDecomposition, radix_ss: RadixDecomposition):
     """GLEV int64 [l_ggsw, k+1, N, B] -> GGSW spectra, 4 planes
@@ -157,6 +166,7 @@ def scheme_switch(glev: torch.Tensor, ssk_freq, glwe: GlweDef,
     return tuple(torch.stack([rows[r][c] for r in range(kp1)]) for c in range(4))
 
 
+@span("cbs.rotate")
 def cbs_blind_rotate(ct: torch.Tensor, bsk_freq, params: Params, phase_rot: bool = False):
     """Step 1 of circuit bootstrapping: the input bit rotated by q/4
     (0 -> q/4, 1 -> 3q/4), then the multi-function PBS's blind rotation:
@@ -182,6 +192,7 @@ def cbs_blind_rotate(ct: torch.Tensor, bsk_freq, params: Params, phase_rot: bool
                         phase_rot=phase_rot)
 
 
+@span("cbs.levels")
 def cbs_levels(acc: torch.Tensor, auto_keys_freq, params: Params) -> torch.Tensor:
     """Step 2: per level i, remove the level's offset at coefficient i
     (the offsets accumulate level by level), X^-i, shr-round by log2 N,
@@ -205,6 +216,8 @@ def circuit_bootstrap(ct: torch.Tensor, bsk_freq, auto_keys_freq, ssk_freq, para
     [k+1, l_cbs, k+1, K, B] (≙ `cbs_u32.circuit_bootstrap_u32`): the
     blind rotation (`cbs_blind_rotate`), the levels (`cbs_levels`), and
     the scheme switch GLEV -> GGSW."""
+    metrics.inc("cbs.calls")
+    metrics.inc("cbs.lanes", ct.shape[-1])
     acc = cbs_blind_rotate(ct, bsk_freq, params, phase_rot)
     glev = cbs_levels(acc, auto_keys_freq, params)
     return scheme_switch(glev, ssk_freq, params.l1_params, params.cbs_radix, params.ss_radix)
@@ -250,6 +263,7 @@ class ConversionCycle(nn.Module):
             raise ValueError(f"ksk shape {tuple(ksk.shape)}, want {want_ksk}")
         self.register_buffer("ksk_planes", ksk_to_byte_planes(ksk.to(device)))
 
+    @span("cycle.cmux")
     def select(self, ggsw) -> torch.Tensor:
         """CMux of (0, q/2 in every coefficient of b) under the GGSWs
         (column b under GGSW b, read in place by `freq_mad_batched`),
@@ -262,12 +276,16 @@ class ConversionCycle(nn.Module):
         m1[-1] = torus.encode_const(1, 1)
         return sample_extract(cmux(m0, m1, ggsw, p.cbs_radix), 0, glwe)
 
+    @span("cycle.keyswitch")
     def keyswitch(self, l1: torch.Tensor) -> torch.Tensor:
         p = self.params
         return keyswitch_lwe(l1, self.ksk_planes, p.l1_params.as_lwe_def(), p.l0_params,
                              p.ks_radix)
 
-    def forward(self, ct: torch.Tensor) -> torch.Tensor:
-        ggsw = circuit_bootstrap(ct, spectra(self, "bsk"), spectra(self, "ak"),
+    def bootstrap(self, ct: torch.Tensor):
+        """LWE int64 [n0+1, B] -> the GGSW spectra of `circuit_bootstrap`."""
+        return circuit_bootstrap(ct, spectra(self, "bsk"), spectra(self, "ak"),
                                  spectra(self, "ssk"), self.params, self.phase_rot)
-        return self.keyswitch(self.select(ggsw))
+
+    def forward(self, ct: torch.Tensor) -> torch.Tensor:
+        return self.keyswitch(self.select(self.bootstrap(ct)))

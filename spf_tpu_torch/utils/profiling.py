@@ -7,8 +7,13 @@ with the device trace through `torch.profiler`):
 
 - `Counters` / module-level `metrics` — cheap named counters wired into
   the executor (gates dispatched per op kind), the Parasol CPU
-  (instructions, graph flushes, gas), and keygen. Counters record
-  *dispatches*.
+  (instructions, graph flushes, gas), keygen and circuit bootstrapping.
+  Counters record *dispatches*.
+- `span` — a named host range in a `torch.profiler` trace around one
+  stage of the program (the circuit bootstrap's rotation, levels, trace
+  and scheme switch; the conversion cycle's CMux and keyswitch). While a
+  `DeviceSpanClock` is installed (`span_clock`), each span's time on the
+  device is timed too.
 - `WaveProfiler` — per-wave wall-clock profile of a `CircuitExecutor`
   run: one row per (level, op, param) batched kernel group with gate
   count and blocking execution time. Forces device sync per group, so
@@ -132,6 +137,58 @@ def device_trace(log_dir: str):
         yield prof
     os.makedirs(log_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+class DeviceSpanClock:
+    """The device's time through each `span` opened while the clock is
+    installed: a CUDA timing event is recorded on the current stream as
+    the host enters the span and another as it leaves, so the pair
+    brackets the device work the span queued (and any idle between its
+    kernels), however far the host runs ahead. `totals_ms` waits for the
+    device."""
+
+    def __init__(self):
+        self._pairs: list = []
+
+    @staticmethod
+    def record() -> torch.cuda.Event:
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def add(self, name: str, start: torch.cuda.Event, end: torch.cuda.Event) -> None:
+        self._pairs.append((name, start, end))
+
+    def totals_ms(self) -> dict:
+        """Summed device ms of each span's entries, by name."""
+        torch.cuda.synchronize()
+        out: dict = defaultdict(float)
+        for name, start, end in self._pairs:
+            out[name] += start.elapsed_time(end)
+        return dict(out)
+
+
+_clock: DeviceSpanClock | None = None
+
+
+def span_clock(clock: DeviceSpanClock | None) -> None:
+    """Time the spans that open from now on with `clock` (None: stop)."""
+    global _clock
+    _clock = clock
+
+
+@contextlib.contextmanager
+def span(name: str):
+    """One stage of the program as a named range of a profiler's trace
+    (`torch.profiler.record_function`; with no profiler running it costs
+    a few microseconds), timed on the device while a clock is installed.
+    Usable as a decorator."""
+    clock = _clock
+    start = clock.record() if clock is not None else None
+    with torch.profiler.record_function(name):
+        yield
+    if clock is not None:
+        clock.add(name, start, clock.record())
 
 
 @contextlib.contextmanager
