@@ -31,7 +31,10 @@ Phases, each printing one JSON line with its seconds:
    batched row, also at the edge shapes of `spf_tpu_torch.scripts.mad_edges`
    (B = 1, 31, 33, 62, 255; K = 32, 64, 128, 40; every column on one slot;
    slots of -1 and nslots giving NaN; k + 1 = 3, 4, 6 at l = 2 and 4; both
-   layouts); the kernels of the CBS and the CMux (`accumulate_decompose`
+   layouts); the keyswitch MAD (`freq_mad_ks`) at the benchmark cycle's
+   trace and scheme-switch shapes (B = 2048, l = 6 and 15, L = 1 and 4,
+   the latter with its initial plane), also at the edge shapes of
+   `mad_edges.check_ks`; the kernels of the CBS and the CMux (`accumulate_decompose`
    at the CBS radix, `mad_horner` g = 2, `fwd_ds` P = 8, `inv_ds` P = 2
    and 4) and `fence` also at B = 32 and 64, the widths of the wave machine's
    small waves; `phase_factors` at the paths' [steps, B]: the multi-bit
@@ -232,7 +235,7 @@ COMBINE = CMUL + DS_ADD
 # is PyTorch's: the glue around them
 PORT_KERNELS = ("accumulate_decompose_kernel", "rotate_sub_decompose_kernel", "fwd_ds_kernel",
                 "inv_ds_kernel", "mad_horner_kernel", "mad_plane_kernel", "mad_planes_kernel",
-                "mad_batched_kernel",
+                "mad_batched_kernel", "ks_mad_kernel",
                 "copy_kernel",
                 "phase_kernel", "phase_factors_kernel", "chain_kernel",
                 "fma_probe_kernel", "fma_probe_fma_kernel", "roll_kernel")
@@ -481,6 +484,7 @@ def phase_kernels(gen, hw):
         *(mad_any_kp1_case(g, kp, bb) for g in (3, 2, 1, 0) for bb in (129, 256)
           for kp in (3, 4, 6)),
         *batched_mad_cases(gen, dfft_cbs),
+        *ks_mad_cases(gen),
         dict(
             name="fence",
             source="spf_tpu_torch/csrc/fence.cu",
@@ -600,6 +604,55 @@ def batched_mad_cases(gen, dfft_cbs) -> list:
             args=(d, rows, slots, 0), extra_args=extra, **edges,
             nbytes=distinct * row_bytes + 16 * (l * kp1 + kp1) * k * cols + 4 * cols,
             ops=k * cols * kp1 * l * kp1 * (CMUL + CADD), distinct_slots=distinct,
+        ))
+    return cases
+
+
+# the keyswitch MAD's shapes in the benchmark's conversion cycle (DEFAULT_128,
+# B = 2048): the trace's GLWE keyswitch (l = tr_radix.count, L = 1) and the
+# scheme switch's row (l = ss_radix.count, L = cbs_radix.count, the initial
+# plane GLEV(b)'s spectra)
+KS_BATCH = 2048
+
+
+def ks_mad_cases(gen) -> list:
+    """The keyswitch MAD (`freq_mad_ks`) at the conversion cycle's two
+    shapes, B = KS_BATCH, one row with a part each; also at every edge
+    shape of `scripts.mad_edges.check_ks`."""
+    from spf_tpu_torch.ops import mad
+    from spf_tpu_torch.params import DEFAULT_128
+    from spf_tpu_torch.scripts import mad_edges
+
+    glwe = DEFAULT_128.l1_params
+    kp1, k_in, k = glwe.size + 1, glwe.size, glwe.degree // 2
+    shapes = (("trace", DEFAULT_128.tr_radix.count, None),
+              ("scheme switch", DEFAULT_128.ss_radix.count, DEFAULT_128.cbs_radix.count))
+    cases = []
+    for label, l, nz in shapes:
+        lead = () if nz is None else (nz,)
+        dfft = mad_edges.spectrum(gen, (l, *lead, k_in, k, KS_BATCH), 20)
+        row = mad_edges.spectrum(gen, (k_in, l, kp1, k), 60)
+        init = None if nz is None else mad_edges.spectrum(gen, (*lead, k, KS_BATCH), 60)
+        z = nz or 1
+        first = not cases
+        cases.append(dict(
+            name=f"freq_mad_ks {label}", row="freq_mad_ks", source="spf_tpu_torch/csrc/mad.cu",
+            replaces="none: XLA glue on the TPU, cbs_u32.keyswitch_glwe_u32's and "
+                     "scheme_switch_u32's products (spf_tpu/ops/cbs_u32.py)",
+            note="mad.cu's keyswitch MAD (`ks_mad_kernel`): digit spectra [l, L, k_in, K, B] "
+                 "times one key row [k_in, l, k+1, K] that every column shares; parts: the "
+                 f"trace's GLWE keyswitch [l = {shapes[0][1]}, k_in = {k_in}, K = {k}, B = "
+                 f"{KS_BATCH}] and the scheme switch's row [l = {shapes[1][1]}, L = "
+                 f"{shapes[1][2]}], column 0 from GLEV(b); edge_shapes: scripts.mad_edges."
+                 "check_ks (B = 1-255, K = 32 and 40, k + 1 = 2, 3, 4, 6, l = 1-15, L = 1-3, "
+                 "every initial plane)",
+            kernel=mad.freq_mad_ks, plain=mad.freq_mad_ks_plain, args=(dfft, row, init, 0),
+            **(dict(edge_check=lambda: mad_edges.check_ks(gen)) if first else {}),
+            plain_copies=1, reps=10,
+            # the spectra, the key row and the initial plane read once, the output written once
+            nbytes=16 * (l * z * k_in * k * KS_BATCH + k_in * l * kp1 * k
+                         + (0 if init is None else z * k * KS_BATCH) + z * kp1 * k * KS_BATCH),
+            ops=z * k * KS_BATCH * k_in * l * kp1 * (CMUL + CADD),
         ))
     return cases
 
@@ -1256,7 +1309,6 @@ def phase_cycle():
     """Path 3: the conversion cycle at DEFAULT_128, batch 256, g = 2.
     Returns its launches and (the module, its input) for path 13."""
     from spf_tpu_torch.ops.cbs import ConversionCycle
-    from spf_tpu_torch.ops.multibit import n_groups
     from spf_tpu_torch.params import DEFAULT_128
 
     p = DEFAULT_128
@@ -1276,14 +1328,11 @@ def phase_cycle():
 
     bits_in = (np.arange(BATCH) % 2).astype(np.uint64)
     ct = encrypt_bits(rng, bits_in, lwe_sk, lwe).cuda()
-    ng = n_groups(lwe.dim, GROUP_CBS)
-    rounds = p.l1_params.log_degree * p.cbs_radix.count  # trace keyswitches
-    want = expect_launches(
-        accumulate_decompose=ng, mad_horner_g2=ng, phase_factors=1,
-        fwd_ds=ng + rounds + 3 + 1,  # rotation, trace, scheme switch (b, digits, GLEV), CMux
-        inv_ds=ng + rounds + 1,  # rotation, trace, CMux
-        freq_mad_batched=1,  # the CMux under the CBS output's batched row
-    )
+    cbs = cbs_launches(p)
+    # a CBS, then the CMux: its forward and inverse FFT and its MAD under the
+    # CBS output's batched row
+    want = expect_launches(**dict(cbs, fwd_ds=cbs["fwd_ds"] + 1, inv_ds=cbs["inv_ds"] + 1,
+                                  freq_mad_batched=1))
     out, first_s, launches, peak_gib = drive(lambda: cycle(ct), want, "path 3 (conversion cycle)")
     n_correct, margin = decode(out, lwe_sk.astype(np.uint64), bits_in, bits=1)
     times, device_call_ms, by_kernel, glue, port_us = wall_and_device(lambda: cycle(ct), 3)
@@ -1402,9 +1451,11 @@ def cbs_launches(p) -> dict:
     from spf_tpu_torch.ops.multibit import n_groups
 
     ng = n_groups(p.l0_params.dim, GROUP_CBS)
-    rounds = p.l1_params.log_degree * p.cbs_radix.count
+    rounds = p.l1_params.log_degree * p.cbs_radix.count  # the trace's GLWE keyswitches
     return dict(accumulate_decompose=ng, mad_horner_g2=ng, phase_factors=1,
-                fwd_ds=ng + rounds + 3, inv_ds=ng + rounds)
+                fwd_ds=ng + rounds + 3,  # rotation, trace, scheme switch (b, digits, GLEV)
+                inv_ds=ng + rounds,  # rotation, trace
+                freq_mad_ks=rounds + p.l1_params.size)  # the trace, the scheme switch's rows
 
 
 def schedule_launches(p, *scheds) -> dict:

@@ -105,6 +105,31 @@
 // tiles first, so the four bin tiles that share a line of a row or a
 // spectrum run side by side and find it there.
 
+//
+// spf_freq_mad_ks, below, is the MAD of circuit bootstrapping's key
+// switches (spf_tpu_torch/ops/cbs.py: the trace's GLWE keyswitch and each
+// row of the scheme switch; XLA glue on the TPU, the products of
+// spf_tpu/ops/cbs_u32.py's keyswitch_glwe_u32 and scheme_switch_u32): digit
+// spectra [l, L, k_in, K, B] times one key row [k_in, l, k+1, K] that every
+// column and every batch entry z < L share -> [L, k+1, K, B], every output
+// plane from 0 or one of them from a given spectrum [L, K, B] (row j of the
+// scheme switch starts column j from its GLEV's b). It sums in the i-then-j
+// order of cadd(acc, cmul(d, g)), bit for bit with freq_mad_ks_plain.
+// Bound: device memory and f32 issue nearly alike. At the trace's shape
+// (l = 6, k_in = 1, k+1 = 2, K = 1024, B = 2048) it reads 201 MB of digit
+// spectra and writes 67 MB (0.080 ms at 3.35 TB/s), and issues 12 complex
+// multiply-adds of 80 f32 instructions a (bin, column) (0.060 ms); at the
+// scheme switch's (l = 15, L = 4) 2.15 GB in, 0.27 GB out (0.72 ms)
+// against 0.60 ms of issue. Design (ks_mad_kernel<k+1>): one thread a (bin,
+// column, z), a block 128 columns of one bin, the bin's key row staged in
+// shared memory (each product's key one broadcast 16-byte load), the k+1
+// accumulators in registers, each digit spectrum read once, coalesced
+// along B, two products ahead of its use; a block's first two spectra and
+// its initial plane are requested before it stages the key row, so the
+// loads are in flight while it waits for the row. On an H100 it takes
+// 0.113 ms at the trace's shape and 0.990 ms at the scheme switch's, 71%
+// and 73% of the byte bound.
+
 #include "common.cuh"
 #include "ds.cuh"
 
@@ -587,6 +612,92 @@ int launch_batched(const Planes4& d, const Planes4& r, const int* slots, float* 
   return spf_last_error();
 }
 
+constexpr int KS_THREADS = 128;  // columns of a block (one bin)
+
+// out[z][o] = init[z] for o == init_plane (with init), else 0, then for
+// each input plane i (outer), digit level j: += d[j, z, i] * row[i, j, o];
+// one thread a (bin, column, z), every output plane of it.
+template <int KP1>
+__global__ void __launch_bounds__(KS_THREADS)
+    ks_mad_kernel(Planes4 dfft, Planes4 row, Planes4 init, float* __restrict__ orh,
+                  float* __restrict__ orl, float* __restrict__ oih, float* __restrict__ oil,
+                  int k_in, int l, int nz, int k, int b, int init_plane) {
+  extern __shared__ float4 key[];  // [k_in * l][k+1]: this bin's key row
+  const int bin = blockIdx.y, z = blockIdx.z;
+  const int col = blockIdx.x * KS_THREADS + threadIdx.x;
+  const bool live = col < b;
+  const int n = k_in * l;
+  const size_t plane = (size_t)k * b;
+  const size_t idx = (size_t)bin * b + col;
+  // the digit spectrum d[j, z, i] of product (i, j)
+  const auto spec = [&](int i, int j) {
+    return dfft.load((size_t)((j * nz + z) * k_in + i) * plane + idx);
+  };
+
+  // the first two products' spectra and the initial plane are in flight
+  // while the block stages its key row
+  dsc acc[KP1], d0{}, d1{};
+#pragma unroll
+  for (int o = 0; o < KP1; ++o) acc[o] = {0.f, 0.f, 0.f, 0.f};
+  if (live) {
+    d0 = spec(0, 0);
+    if (n > 1) d1 = l > 1 ? spec(0, 1) : spec(1, 0);
+    if (init.rh != nullptr) {
+      const dsc v = init.load((size_t)z * plane + idx);
+#pragma unroll
+      for (int o = 0; o < KP1; ++o)
+        if (o == init_plane) acc[o] = v;
+    }
+  }
+  // row[i, j, o] -> key[(i * l + j) * KP1 + o]
+  for (int e = threadIdx.x; e < n * KP1; e += KS_THREADS) {
+    const dsc r = row.load((size_t)e * k + bin);
+    key[e] = make_float4(r.rh, r.rl, r.ih, r.il);
+  }
+  __syncthreads();
+  if (!live) return;
+
+  // (pi, pj): the product whose spectrum is loaded next, two ahead
+  int pi = 2 / l, pj = 2 % l;
+#pragma unroll 1
+  for (int ij = 0; ij < n; ++ij) {
+    dsc d2{};
+    if (ij + 2 < n) {
+      d2 = spec(pi, pj);
+      if (++pj == l) pj = 0, ++pi;
+    }
+    const float4* kij = key + ij * KP1;
+#pragma unroll
+    for (int o = 0; o < KP1; ++o) {
+      const float4 r = kij[o];  // one broadcast 16-byte shared load
+      acc[o] = cadd(acc[o], cmul(d0, {r.x, r.y, r.z, r.w}));
+    }
+    d0 = d1;
+    d1 = d2;
+  }
+#pragma unroll
+  for (int o = 0; o < KP1; ++o) {
+    const size_t out = (size_t)(z * KP1 + o) * plane + idx;
+    orh[out] = acc[o].rh;
+    orl[out] = acc[o].rl;
+    oih[out] = acc[o].ih;
+    oil[out] = acc[o].il;
+  }
+}
+
+template <int KP1>
+int launch_ks(const Planes4& d, const Planes4& r, const Planes4& in, float* o0, float* o1,
+              float* o2, float* o3, int k_in, int l, int nz, int k, int b, int init_plane,
+              cudaStream_t stream) {
+  const size_t smem = sizeof(float4) * k_in * l * KP1;
+  if (k > 65535 || nz > 65535 || smem > SMEM_DEFAULT)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((b + KS_THREADS - 1) / KS_THREADS, k, nz);
+  ks_mad_kernel<KP1><<<grid, KS_THREADS, smem, stream>>>(d, r, in, o0, o1, o2, o3, k_in, l, nz,
+                                                         k, b, init_plane);
+  return spf_last_error();
+}
+
 }  // namespace
 
 // dfft 4 x [l, k+1, K, B]; rows 4 x a GGSW buffer of nslots GGSWs, element
@@ -647,4 +758,27 @@ extern "C" int spf_mad_horner(const float* d0, const float* d1, const float* d2,
     }
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// dfft 4 x [l, nz, k_in, K, B]; row 4 x [k_in, l, k+1, K]; init 4 x
+// [nz, K, B], or null -> out 4 x [nz, k+1, K, B]: plane init_plane of
+// out[z] starts from init[z] (with init), every other plane from 0.
+extern "C" int spf_freq_mad_ks(const float* d0, const float* d1, const float* d2, const float* d3,
+                               const float* r0, const float* r1, const float* r2, const float* r3,
+                               const float* i0, const float* i1, const float* i2, const float* i3,
+                               float* o0, float* o1, float* o2, float* o3, int kp1, int k_in,
+                               int l, int nz, int k, int b, int init_plane, void* stream) {
+  if (k_in < 1 || l < 1 || nz < 1 || k < 1 || b < 1 || (long long)k * b >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (i0 != nullptr && (init_plane < 0 || init_plane >= kp1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Planes4 d{d0, d1, d2, d3}, r{r0, r1, r2, r3}, in{i0, i1, i2, i3};
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (kp1) {
+    case 2: return launch_ks<2>(d, r, in, o0, o1, o2, o3, k_in, l, nz, k, b, init_plane, s);
+    case 3: return launch_ks<3>(d, r, in, o0, o1, o2, o3, k_in, l, nz, k, b, init_plane, s);
+    case 4: return launch_ks<4>(d, r, in, o0, o1, o2, o3, k_in, l, nz, k, b, init_plane, s);
+    case 6: return launch_ks<6>(d, r, in, o0, o1, o2, o3, k_in, l, nz, k, b, init_plane, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -10,7 +10,9 @@ instances; every other k+1 runs its per-plane instance of the same g,
 counted as `mad_any_kp1_g<g>`. Its second entry point, `freq_mad_batched`,
 is the g = 0 MAD under a batched row: each batch column reads its own
 GGSW row from a buffer of GGSWs (the CMux of the conversion cycle and of
-the circuit executors)."""
+the circuit executors). Its third, `freq_mad_ks`, is the MAD of circuit
+bootstrapping's key switches (the trace's GLWE keyswitch and each row of
+the scheme switch): one key row that every column shares."""
 
 from .build import Kernel
 
@@ -38,6 +40,7 @@ MAD_ANY_KP1_BY_GROUP = {g: Kernel("mad", "spf_mad_horner", _MAD_ARGS,
                         for g in range(4)}
 FREQ_MAD_BATCHED = Kernel("mad", "spf_freq_mad_batched", "p" * 13 + "iiiii" + "qqq" + "p",
                           ("mad_batched_kernel",))
+FREQ_MAD_KS = Kernel("mad", "spf_freq_mad_ks", "p" * 16 + "i" * 7 + "p", ("ks_mad_kernel",))
 FENCE = Kernel("fence", "spf_fence", "ppip", ("copy_kernel",))
 PHASE_MINUS_ONE = Kernel("phase", "spf_phase_minus_one", "p" * 10 + "iip", ("phase_kernel",))
 PHASE_FACTORS = Kernel("phase", "spf_phase_factors", "p" * 7 + "iiip", ("phase_factors_kernel",))
@@ -59,6 +62,7 @@ ALL = {
     "freq_mad": FREQ_MAD,
     **{f"mad_any_kp1_g{g}": k for g, k in MAD_ANY_KP1_BY_GROUP.items()},
     "freq_mad_batched": FREQ_MAD_BATCHED,
+    "freq_mad_ks": FREQ_MAD_KS,
     "fence": FENCE,
     "phase_minus_one": PHASE_MINUS_ONE,
     "phase_factors": PHASE_FACTORS,

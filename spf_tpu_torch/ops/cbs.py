@@ -20,14 +20,16 @@ under the GGSW, sample extraction and the L1 -> L0 LWE keyswitch.
 Kernels on this path: the blind rotation's (multi-bit at the key's
 group size: `accumulate_decompose`, `mad_horner`, the FFTs, `phase_factors`),
 the forward and inverse FFTs of every keyswitch, the scheme switch and
-the CMux, and the CMux's MAD under the batched row of the CBS output
-(`freq_mad_batched`). The keyswitch and scheme-switch MADs are plain
-PyTorch, as they are XLA glue on the TPU.
+the CMux, the CMux's MAD under the batched row of the CBS output
+(`freq_mad_batched`), and the MAD of every GLWE keyswitch of the trace and
+of every row of the scheme switch (`freq_mad_ks`; XLA glue on the TPU).
 
 Each stage runs inside a span of `utils.profiling` (`cbs.rotate`,
 `cbs.levels`, `cbs.trace`, `cbs.scheme_switch`, `cycle.cmux`,
 `cycle.keyswitch`), and `metrics` counts `cbs.calls` and `cbs.lanes` a
-circuit bootstrap and `cbs.glwe_keyswitches` a GLWE keyswitch.
+circuit bootstrap, `cbs.glwe_keyswitches` a GLWE keyswitch and
+`cbs.ks_mad_launches` a launch of the keyswitch MAD's kernel (on a card:
+log2(N) * l_cbs + k a circuit bootstrap).
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ from torch import nn
 
 from ..params import GlweDef, Params, RadixDecomposition
 from ..utils.profiling import metrics, span
-from . import ds, torus
+from . import mad, torus
 from .bootstrap import (
     as_tensor,
     blind_rotate,
@@ -84,21 +86,22 @@ def multifunctional_cbs_lut_np(glwe: GlweDef, cbs_radix: RadixDecomposition) -> 
     return lut
 
 
+def _ks_mad(dfft, key_row, init=None, init_plane: int = 0):
+    """`mad.freq_mad_ks`, each launch of its kernel counted as
+    `cbs.ks_mad_launches`."""
+    out = mad.freq_mad_ks(dfft, key_row, init, init_plane)
+    if dfft[0].is_cuda:
+        metrics.inc("cbs.ks_mad_launches")
+    return out
+
+
 def keyswitch_glwe(ct: torch.Tensor, ksk_row, glwe: GlweDef, radix: RadixDecomposition):
     """GLWE keyswitch: ct int64 [k+1, N, B], key spectra 4 planes
     [k, l, k+1, K] -> int64 [k+1, N, B] (≙ `cbs_u32.keyswitch_glwe_u32`)."""
     metrics.inc("cbs.glwe_keyswitches")
-    k = glwe.size
     a, b = ct[:-1], ct[-1]
     dfft = fwd_signed(torus.decompose(a, radix))  # [l, k, K, B]
-    shape = (k + 1, glwe.degree // 2, ct.shape[-1])
-    acc = tuple(torch.zeros(shape, dtype=torch.float32, device=ct.device) for _ in range(4))
-    for i in range(k):
-        for j in range(radix.count):
-            d = tuple(c[j, i][None] for c in dfft)  # [1, K, B]
-            g = tuple(c[i, j][..., None] for c in ksk_row)  # [k+1, K, 1]
-            acc = ds.cadd(acc, ds.cmul(d, g))
-    out = torus.neg(inv_limb(acc))
+    out = torus.neg(inv_limb(_ks_mad(dfft, ksk_row)))
     out[-1] = torus.add(out[-1], b)
     return out
 
@@ -142,26 +145,12 @@ def scheme_switch(glev: torch.Tensor, ssk_freq, glwe: GlweDef,
     """GLEV int64 [l_ggsw, k+1, N, B] -> GGSW spectra, 4 planes
     [k+1, l_ggsw, k+1, K, B]; ssk_freq 4 planes [k, k, l_ss, k+1, K]
     (≙ `cbs_u32.scheme_switch_u32`)."""
-    k = glwe.size
-    kp1 = k + 1
-    k2 = glwe.degree // 2
-    bb = glev.shape[-1]
-    l_ggsw = radix_ggsw.count
+    kp1 = glwe.size + 1
     a, b = glev[:, :-1], glev[:, -1]  # [l, k, N, B], [l, N, B]
     b_fft = fwd_limb(b)  # [l, K, B]
     dfft = fwd_signed(torus.decompose(a, radix_ss))  # [l_ss, l, k, K, B]
-    rows = []
-    for j in range(k):
-        acc = tuple(torch.zeros((l_ggsw, kp1, k2, bb), dtype=torch.float32, device=glev.device)
-                    for _ in range(4))
-        for z, bf in zip(acc, b_fft):
-            z[:, j] = bf  # GLEV(b) in row j's column j
-        for r in range(k):
-            for jj in range(radix_ss.count):
-                d = tuple(c[jj, :, r][:, None] for c in dfft)  # [l, 1, K, B]
-                g = tuple(c[j, r, jj][..., None] for c in ssk_freq)  # [k+1, K, 1]
-                acc = ds.cadd(acc, ds.cmul(d, g))
-        rows.append(acc)
+    # row j: GLEV(b) in column j, plus the product with the key row [k, l_ss, k+1, K]
+    rows = [_ks_mad(dfft, tuple(c[j] for c in ssk_freq), b_fft, j) for j in range(glwe.size)]
     rows.append(fwd_limb(glev))  # row k: GLEV(m) itself
     return tuple(torch.stack([rows[r][c] for r in range(kp1)]) for c in range(4))
 

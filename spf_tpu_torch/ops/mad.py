@@ -32,6 +32,13 @@ buffer, where columns pick their slots). The TPU computes it as XLA glue
 (`bootstrap_u32.freq_mad` with a 5-dimensional row); here it is the
 kernel `mad_batched_kernel` of `csrc/mad.cu`, bit for bit with
 `freq_mad_plain` on the gathered row.
+
+`freq_mad_ks` is the MAD of circuit bootstrapping's key switches (the
+trace's GLWE keyswitch and each row of the scheme switch, `ops/cbs.py`):
+k_in input planes, not k + 1, under one key row that every column shares,
+over a batch of L GLWEs, one output plane optionally starting from a
+given spectrum. XLA glue on the TPU; here `ks_mad_kernel` of
+`csrc/mad.cu`, bit for bit with `freq_mad_ks_plain`.
 """
 
 from __future__ import annotations
@@ -223,3 +230,75 @@ def freq_mad_batched(dfft, rows, slots=None, slot_axis: int = -1):
     place on CUDA tensors; `freq_mad_batched_plain` on CPU tensors."""
     return dispatch("freq_mad_batched", dfft[0], _mad_batched_cuda, freq_mad_batched_plain,
                     dfft, rows, slots, slot_axis)
+
+
+def _ks_dims(dfft, key_row, init, init_plane: int):
+    """(k+1, k_in, l, L, K, B) of a keyswitch MAD: digit spectra 4 planes
+    [l, k_in, K, B] (L = 1) or [l, L, k_in, K, B], key row [k_in, l, k+1,
+    K], init None or [K, B] / [L, K, B] as the spectra's batch. Raises on
+    misshapen or mismatched inputs and on a k + 1 outside MAD_KP1."""
+    shape, kshape = tuple(dfft[0].shape), tuple(key_row[0].shape)
+    if len(shape) not in (4, 5) or len(kshape) != 4:
+        raise ValueError(f"freq_mad_ks: digit spectra {shape}, key row {kshape}")
+    l, k_in, k_, b = shape[0], *shape[-3:]
+    kp1 = kshape[2]
+    if kshape != (k_in, l, kp1, k_):
+        raise ValueError(f"freq_mad_ks: key row {kshape} for digit spectra {shape}, "
+                         f"want ({k_in}, {l}, k+1, {k_})")
+    if kp1 not in MAD_KP1:
+        raise ValueError(f"freq_mad_ks: no kernel for k+1 = {kp1}")
+    if any(tuple(c.shape) != shape for c in dfft) or any(tuple(c.shape) != kshape for c in key_row):
+        raise ValueError("freq_mad_ks: the 4 planes of an input differ in shape")
+    if init is not None:
+        want = (*shape[1:-3], k_, b)
+        if any(tuple(c.shape) != want for c in init) or not 0 <= init_plane < kp1:
+            raise ValueError(f"freq_mad_ks: init {tuple(init[0].shape)} into plane {init_plane}, "
+                             f"want {want} into a plane below {kp1}")
+    return kp1, k_in, l, (shape[1] if len(shape) == 5 else 1), k_, b
+
+
+def freq_mad_ks_plain(dfft, key_row, init=None, init_plane: int = 0):
+    """The plain version of `freq_mad_ks`: the keyswitch loops of circuit
+    bootstrapping (≙ the products of `cbs_u32.keyswitch_glwe_u32` and
+    `scheme_switch_u32`), i outer, j inner."""
+    kp1, k_in, l, _, _, _ = _ks_dims(dfft, key_row, init, init_plane)
+    shape = (*dfft[0].shape[1:-3], kp1, *dfft[0].shape[-2:])
+    acc = tuple(torch.zeros(shape, dtype=torch.float32, device=dfft[0].device) for _ in range(4))
+    if init is not None:
+        for z, c in zip(acc, init):
+            z[..., init_plane, :, :] = c
+    for i in range(k_in):
+        for j in range(l):
+            d = tuple(c[j, ..., i, None, :, :] for c in dfft)  # [L?, 1, K, B]
+            g = tuple(c[i, j][..., None] for c in key_row)  # [k+1, K, 1]
+            acc = ds.cadd(acc, ds.cmul(d, g))
+    return acc
+
+
+def _mad_ks_cuda(dfft, key_row, init, init_plane):
+    kp1, k_in, l, nz, k_, b = _ks_dims(dfft, key_row, init, init_plane)
+    dfft, key_row = ([c.contiguous() for c in x] for x in (dfft, key_row))
+    init = None if init is None else [c.contiguous() for c in init]
+    check_cuda("freq_mad_ks", *dfft, *key_row, *(init or ()))
+    if k_ * b >= 1 << 31:
+        raise ValueError("freq_mad_ks: too many elements for one launch")
+    out = [torch.empty((*dfft[0].shape[1:-3], kp1, k_, b), dtype=torch.float32,
+                       device=dfft[0].device) for _ in range(4)]
+    init_ptrs = (None,) * 4 if init is None else tuple(c.data_ptr() for c in init)
+    kernels.FREQ_MAD_KS(
+        *(c.data_ptr() for c in (*dfft, *key_row)), *init_ptrs, *(c.data_ptr() for c in out),
+        kp1, k_in, l, nz, k_, b, init_plane, stream_of(dfft[0]),
+    )
+    return tuple(out)
+
+
+def freq_mad_ks(dfft, key_row, init=None, init_plane: int = 0):
+    """The MAD of a GLWE keyswitch, or of a batch of them under one key
+    row: digit spectra 4 planes [l, k_in, K, B] or [l, L, k_in, K, B]
+    times the key row [k_in, l, k+1, K] that every column shares, summed
+    over (i, j), -> 4 planes [k+1, K, B] or [L, k+1, K, B]. Each output
+    plane starts from 0, or plane `init_plane` from `init` (4 planes [K, B]
+    or [L, K, B]). The kernel on CUDA tensors, `freq_mad_ks_plain` on CPU
+    tensors; both raise on misshapen inputs."""
+    return dispatch("freq_mad_ks", dfft[0], _mad_ks_cuda, freq_mad_ks_plain,
+                    dfft, key_row, init, init_plane)

@@ -17,13 +17,19 @@ shapes below are those a tiled design can break:
   and without slots);
 - the MAD at k + 1 = 3, 4, 6 and each g in 0..3 at [l = 2, K = 128] with
   B = 1, 8, 129 and 256 (each column tile and both kernels); also l = 4,
-  K = 32, B = 33 and 256 (above 48 KB of shared memory at k + 1 = 6).
+  K = 32, B = 33 and 256 (above 48 KB of shared memory at k + 1 = 6);
+- the keyswitch MAD (`ops.mad.freq_mad_ks`, `ks_mad_kernel`: a bin and
+  128 columns of one batch entry a block, each spectrum loaded two
+  products ahead) at B = 1, 31, 33, 129 and 255, K = 32 and 40; l = 1, 2,
+  3 and 15 with k_in = 1 and 2 (the prefetch's first two products); k + 1
+  = 2, 3, 4 and 6; unbatched spectra and L = 1 and 3; no initial plane
+  and each plane as the initial one.
 
 `check(gen)` runs them all on the generator's device and returns
-{"checked": n, "not_bitexact": [labels]} (`check_batched`, `check_plane`
-one kernel's); `chip_smoke.py` phase 3 and `kernel_ab --source mad
---check` call them with a CUDA generator (on CPU tensors the wrappers run
-their plain versions).
+{"checked": n, "not_bitexact": [labels]} (`check_batched`, `check_plane`,
+`check_ks` one kernel's); `chip_smoke.py` phase 3 and `kernel_ab --source
+mad --check` call them with a CUDA generator (on CPU tensors the wrappers
+run their plain versions).
 """
 
 from __future__ import annotations
@@ -114,6 +120,29 @@ def plane_cases(gen):
     return cases
 
 
+def ks_cases(gen):
+    """(label, args of freq_mad_ks) at the keyswitch MAD's edges."""
+    cases = []
+
+    def add(kp1, k_in, l, nz, k, b, init_plane):
+        lead = () if nz is None else (nz,)
+        d = spectrum(gen, (l, *lead, k_in, k, b), 20)
+        row = spectrum(gen, (k_in, l, kp1, k), 60)
+        init = None if init_plane is None else spectrum(gen, (*lead, k, b), 60)
+        cases.append((f"ks k+1={kp1} k_in={k_in} l={l} L={nz} K={k} B={b} init={init_plane}",
+                      (d, row, init, init_plane or 0)))
+
+    for b in (1, 31, 33, 129, 255):
+        add(2, 1, 6, None, 32, b, None)
+    for l in (1, 2, 3, 15):
+        for k_in in (1, 2):
+            add(3, k_in, l, 3, 40, 33, 2)
+    for kp1 in (2, 3, 4, 6):
+        for init_plane in (None, *range(kp1)):
+            add(kp1, kp1 - 1, 2, 1, 32, 129, init_plane)
+    return cases
+
+
 def _same(got, want) -> bool:
     return all(torch.equal(g.view(torch.int32), w.view(torch.int32)) for g, w in zip(got, want))
 
@@ -143,8 +172,16 @@ def check_plane(gen, group: int) -> dict:
     return dict(checked=len(cases), not_bitexact=bad)
 
 
+def check_ks(gen) -> dict:
+    """The keyswitch MAD at every edge shape, as check_batched."""
+    cases = ks_cases(gen)
+    bad = [label for label, args in cases
+           if not _same(mad.freq_mad_ks(*args), mad.freq_mad_ks_plain(*args))]
+    return dict(checked=len(cases), not_bitexact=bad)
+
+
 def check(gen) -> dict:
-    """Every edge shape of both kernels."""
-    res = [check_batched(gen)] + [check_plane(gen, g) for g in range(4)]
+    """Every edge shape of the three kernels."""
+    res = [check_batched(gen), check_ks(gen)] + [check_plane(gen, g) for g in range(4)]
     return dict(checked=sum(r["checked"] for r in res),
                 not_bitexact=[label for r in res for label in r["not_bitexact"]])

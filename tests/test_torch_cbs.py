@@ -40,6 +40,7 @@ from spf_tpu.utils import host_crypto as hc
 from spf_tpu_torch import convert
 from spf_tpu_torch.ops import bootstrap, cbs, encryption, keyswitch, multibit, torus
 from spf_tpu_torch.params import RadixDecomposition
+from spf_tpu_torch.utils.profiling import metrics
 
 torch.set_num_threads(1)
 
@@ -371,3 +372,17 @@ def test_cycle_rejects_misshapen_keys(keys):
     with pytest.raises(ValueError, match="ksk shape"):
         cbs.ConversionCycle(keys["mb"], keys["ak"], keys["ssk"], keys["ksk"][:, :3], PARAMS,
                             device="cpu")
+
+
+def test_ks_mad_launch_counter_stays_zero_on_the_cpu(keys):
+    """On CPU tensors the keyswitch MAD runs its plain version: a trace's
+    GLWE keyswitch and a scheme switch count their keyswitches and no
+    launch of the kernel."""
+    before = metrics.snapshot()
+    ct = torus.from_u64_np(_random_torus(7, (2, N, B)))
+    cbs.keyswitch_glwe(ct, tuple(c[0] for c in keys["ak_freq"]), GLWE, PARAMS.tr_radix)
+    glev = torus.from_u64_np(_random_torus(8, (PARAMS.cbs_radix.count, 2, N, B)))
+    cbs.scheme_switch(glev, keys["ssk_freq"], GLWE, PARAMS.cbs_radix, PARAMS.ss_radix)
+    after = metrics.snapshot()
+    assert after.get("cbs.glwe_keyswitches", 0) - before.get("cbs.glwe_keyswitches", 0) == 1
+    assert after.get("cbs.ks_mad_launches", 0) == before.get("cbs.ks_mad_launches", 0) == 0

@@ -6,12 +6,19 @@ columns a block, each column's GGSW row read in place at its slot;
 (W = PLANE_W_WIDE, _MID or _NARROW, by B), W warps an output plane, the
 key rows, the digit spectra and the phase factors staged once;
 `mad_plane_kernel` is one plane and up to THREADS columns a block, chosen
-by the launcher's `one_plane` rule. This test reads those constants from
+by the launcher's `one_plane` rule; `ks_mad_kernel` (the keyswitch MAD)
+is one bin, KS_THREADS columns and one batch entry a block, each digit
+spectrum loaded two products ahead. This test reads those constants from
 the source and runs each schedule in PyTorch, all blocks of a launch at
 once: the batched kernel's row index map equals `_gathered_rows` in both
 layouts, every (o, bin, col) is written by exactly one block, a column
 whose slot lies outside [0, nslots) writes NaN, and the result is bit for
 bit the plain version's. K = 32, 36 and 40, ragged B.
+
+The keyswitch MAD's plain version is also held bit for bit against the
+loops that circuit bootstrapping ran before it had a kernel (the trace's
+GLWE keyswitch and the scheme switch's rows), and its wrapper against
+misshapen inputs.
 """
 
 import re
@@ -39,6 +46,7 @@ PLANE_MAX_KP1 = _const("PLANE_MAX_KP1")
 ONE_PLANE_COLS = _const("THREADS")
 ONE_PLANE_PRODUCTS, ONE_PLANE_STEPS, ONE_PLANE_B = (
     _const("ONE_PLANE_PRODUCTS"), _const("ONE_PLANE_STEPS"), _const("ONE_PLANE_B"))
+KS_THREADS = _const("KS_THREADS")
 
 
 def _spectrum(rng, *shape, exp):
@@ -263,3 +271,171 @@ def test_plane_schedule_matches_plain(kp1, group, b):
     assert (written == 1).all(), "an output written by no block or by two"
     for got, w in zip(out, want):
         np.testing.assert_array_equal(got.numpy().view(np.uint32), w.numpy().view(np.uint32))
+
+
+def ks_schedule(dfft, row, init, init_plane):
+    """ks_mad_kernel's blocks, all at once: a block KS_THREADS columns of
+    one bin and one batch entry z, thread t the column t of its tile; the
+    key row staged as key[e] = row[e * K + bin], e = (i * l + j) * (k+1) +
+    o; spectrum (i, j) read at ((j * L + z) * k_in + i) * K * B + bin * B +
+    col, two products ahead of its use; the initial plane at z * K * B +
+    bin * B + col; output plane o at (z * (k+1) + o) * K * B + bin * B +
+    col -> (out 4 planes [L?, k+1, K, B], written counts)."""
+    shape = tuple(dfft[0].shape)
+    l, k_in, k, b = shape[0], *shape[-3:]
+    nz = shape[1] if len(shape) == 5 else 1
+    kp1 = row[0].shape[2]
+    n, plane = k_in * l, k * b
+    dflat = [c.reshape(-1) for c in dfft]
+    rflat = [c.reshape(-1) for c in row]
+    bx, bins, z, tid = np.meshgrid(np.arange(-(-b // KS_THREADS)), np.arange(k), np.arange(nz),
+                                   np.arange(KS_THREADS), indexing="ij")
+    cols = bx * KS_THREADS + tid
+    live = cols < b
+    bins, z, cols = bins[live], z[live], cols[live]
+    idx = bins * b + cols
+
+    def spec(i, j):
+        return tuple(dflat[p][((j * nz + z) * k_in + i) * plane + idx] for p in range(4))
+
+    zero = tuple(torch.zeros(len(cols)) for _ in range(4))
+    acc = [zero] * kp1
+    d0 = spec(0, 0)
+    d1 = (spec(0, 1) if l > 1 else spec(1, 0)) if n > 1 else zero
+    if init is not None:
+        acc[init_plane] = tuple(c.reshape(-1)[z * plane + idx] for c in init)
+    pi, pj = 2 // l, 2 % l
+    for ij in range(n):
+        d2 = zero
+        if ij + 2 < n:
+            d2 = spec(pi, pj)
+            pj += 1
+            if pj == l:
+                pj, pi = 0, pi + 1
+        for o in range(kp1):
+            e = ij * kp1 + o
+            acc[o] = ds.cadd(acc[o], ds.cmul(d0, tuple(rflat[p][e * k + bins] for p in range(4))))
+        d0, d1 = d1, d2
+    out = [torch.full((nz * kp1 * plane,), -1.0) for _ in range(4)]
+    written = torch.zeros(nz * kp1 * plane, dtype=torch.int64)
+    for o in range(kp1):
+        at = torch.from_numpy((z * kp1 + o) * plane + idx)
+        for p in range(4):
+            out[p][at] = acc[o][p]
+        written.index_put_((at,), torch.ones(len(at), dtype=torch.int64), accumulate=True)
+    lead = shape[1:-3]
+    return tuple(c.reshape(*lead, kp1, k, b) for c in out), written
+
+
+def _ks_inputs(rng, kp1, k_in, l, nz, k, b, with_init, batched=True):
+    lead = (nz,) if batched else ()
+    dfft = _spectrum(rng, l, *lead, k_in, k, b, exp=20)
+    row = _spectrum(rng, k_in, l, kp1, k, exp=60)
+    init = _spectrum(rng, *lead, k, b, exp=60) if with_init else None
+    return dfft, row, init
+
+
+@pytest.mark.parametrize("kp1, k_in, l, nz, init_plane, b", [
+    (2, 1, 6, 1, None, 33), (2, 1, 1, 1, None, 129), (2, 1, 2, 3, 1, 1), (3, 2, 3, 4, 0, 130),
+    (6, 5, 2, 2, 5, 7), (4, 3, 1, 2, 2, 128), (3, 1, 15, 1, 2, 64)])
+def test_ks_schedule_matches_plain(kp1, k_in, l, nz, init_plane, b):
+    k = 36
+    rng = np.random.default_rng(kp1 * 1000 + k_in * 100 + l * 10 + b)
+    dfft, row, init = _ks_inputs(rng, kp1, k_in, l, nz, k, b, init_plane is not None)
+    plane = 0 if init_plane is None else init_plane
+    want = mad.freq_mad_ks_plain(dfft, row, init, plane)
+    out, written = ks_schedule(dfft, row, init, plane)
+    assert (written == 1).all(), "an output written by no thread or by two"
+    for got, w in zip(out, want):
+        np.testing.assert_array_equal(got.numpy().view(np.uint32), w.numpy().view(np.uint32))
+
+
+def _trace_keyswitch_loops(dfft, ksk_row, init, init_plane):
+    """The product of `cbs.keyswitch_glwe` as its loops ran in PyTorch
+    (digit spectra [l, k, K, B], key row [k, l, k+1, K]); an initial plane
+    placed as the scheme switch places it."""
+    l, k = dfft[0].shape[:2]
+    shape = (k + 1, *dfft[0].shape[2:])
+    acc = tuple(torch.zeros(shape, dtype=torch.float32) for _ in range(4))
+    if init is not None:
+        for z, c in zip(acc, init):
+            z[init_plane] = c
+    for i in range(k):
+        for j in range(l):
+            d = tuple(c[j, i][None] for c in dfft)  # [1, K, B]
+            g = tuple(c[i, j][..., None] for c in ksk_row)  # [k+1, K, 1]
+            acc = ds.cadd(acc, ds.cmul(d, g))
+    return acc
+
+
+def _scheme_switch_row_loops(dfft, ssk_row, b_fft, j):
+    """Row j of `cbs.scheme_switch` as its loops ran in PyTorch (digit
+    spectra [l_ss, l, k, K, B], key row [k, l_ss, k+1, K], GLEV(b) spectra
+    [l, K, B] in column j, or none)."""
+    l_ss, l_ggsw, k, k2, bb = dfft[0].shape
+    acc = tuple(torch.zeros((l_ggsw, k + 1, k2, bb), dtype=torch.float32) for _ in range(4))
+    if b_fft is not None:
+        for z, bf in zip(acc, b_fft):
+            z[:, j] = bf
+    for r in range(k):
+        for jj in range(l_ss):
+            d = tuple(c[jj, :, r][:, None] for c in dfft)  # [l, 1, K, B]
+            g = tuple(c[r, jj][..., None] for c in ssk_row)  # [k+1, K, 1]
+            acc = ds.cadd(acc, ds.cmul(d, g))
+    return acc
+
+
+@pytest.mark.parametrize("kp1", [2, 3])
+@pytest.mark.parametrize("nz", [1, 4])
+@pytest.mark.parametrize("with_init", [False, True])
+def test_freq_mad_ks_plain_is_the_cbs_loops(kp1, nz, with_init):
+    """L = 1 on the trace's [l, k, K, B] spectra, L = 4 on the scheme
+    switch's [l_ss, L, k, K, B], the initial plane the last one (the
+    scheme switch's column j = k - 1)."""
+    rng = np.random.default_rng(kp1 * 10 + nz + 100 * with_init)
+    k_in, l, k, b = kp1 - 1, 3, 8, 5
+    batched = nz > 1
+    dfft, row, init = _ks_inputs(rng, kp1, k_in, l, nz, k, b, with_init, batched)
+    plane = k_in - 1 if with_init else 0
+    got = mad.freq_mad_ks_plain(dfft, row, init, plane)
+    if batched:
+        want = _scheme_switch_row_loops(dfft, row, init, plane)
+    else:
+        want = _trace_keyswitch_loops(dfft, row, init, plane)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        np.testing.assert_array_equal(g.numpy().view(np.uint32), w.numpy().view(np.uint32))
+
+
+def _misshapen(rng, case):
+    """(dfft, key row, init, init_plane) of freq_mad_ks with one fault."""
+    kp1, k_in, l, nz, k, b = 2, 1, 3, 2, 8, 5
+    dfft, row, init = _ks_inputs(rng, kp1, k_in, l, nz, k, b, True)
+    if case == "key row k_in":
+        row = _spectrum(rng, k_in + 1, l, kp1, k, exp=60)
+    elif case == "key row l":
+        row = _spectrum(rng, k_in, l + 1, kp1, k, exp=60)
+    elif case == "key row K":
+        row = _spectrum(rng, k_in, l, kp1, 2 * k, exp=60)
+    elif case == "k+1 = 5":
+        dfft, row, init = _ks_inputs(rng, 5, 4, l, nz, k, b, True)
+    elif case == "k+1 = 8":
+        dfft, row, init = _ks_inputs(rng, 8, 7, l, nz, k, b, True)
+    elif case == "spectra rank":
+        dfft = tuple(c[0, 0] for c in dfft)
+    elif case == "planes differ":
+        dfft = (*dfft[:3], dfft[3][..., :-1])
+    elif case == "init batch":
+        init = tuple(c[:1] for c in init)
+    elif case == "init plane":
+        return dfft, row, init, kp1
+    return dfft, row, init, 0
+
+
+@pytest.mark.parametrize("case", ["key row k_in", "key row l", "key row K", "k+1 = 5",
+                                  "k+1 = 8", "spectra rank", "planes differ", "init batch",
+                                  "init plane"])
+def test_freq_mad_ks_rejects_misshapen_inputs(case):
+    args = _misshapen(np.random.default_rng(7), case)
+    with pytest.raises(ValueError, match="freq_mad_ks"):
+        mad.freq_mad_ks(*args)
