@@ -34,9 +34,15 @@ Phases, each printing one JSON line with its seconds:
    layouts); the keyswitch MAD (`freq_mad_ks`) at the benchmark cycle's
    trace and scheme-switch shapes (B = 2048, l = 6 and 15, L = 1 and 4,
    the latter with its initial plane), also at the edge shapes of
-   `mad_edges.check_ks`; the kernels of the CBS and the CMux (`accumulate_decompose`
-   at the CBS radix, `mad_horner` g = 2, `fwd_ds` P = 8, `inv_ds` P = 2
-   and 4) and `fence` also at B = 32 and 64, the widths of the wave machine's
+   `mad_edges.check_ks`; the keyswitch's coefficient-domain halves at the
+   same shapes (`ks_decompose`: the trace's mask with each round's table and
+   the scheme switch's strided masks; `ks_round_add` with each round's
+   table, with no table and without the sum), also at N = 64 with B = 1, 3
+   and 129, and the two options for the forward FFT's zero lo plane (a
+   fresh fill a call or one kept a shape), timed at both shapes; the
+   kernels of the CBS and the CMux (`accumulate_decompose` at the CBS
+   radix, `mad_horner` g = 2, `fwd_ds` P = 8, `inv_ds` P = 2 and 4) and
+   `fence` also at B = 32 and 64, the widths of the wave machine's
    small waves; `phase_factors` at the paths' [steps, B]: the multi-bit
    PBS's [639, 2048] (timed), the CBS rotation's [638, 256], the
    single-bit PBS's [637, 256], ragged B = 1 and 129, and at every K of
@@ -81,7 +87,8 @@ Phases, each printing one JSON line with its seconds:
 7. path 3, the conversion cycle (`ConversionCycle`: CBS with the
    multi-bit rotation at g = 2, radix 4x8, CMux, sample extract, LWE
    keyswitch) at DEFAULT_128, batch 256: keygen on the card, one cycle
-   with the launch counts read around it, decryption (256/256 correct,
+   with the launch counts read around it (and the program's counters of
+   the keyswitch kernels' launches, `cbs.ks_*_launches`, equal to them), decryption (256/256 correct,
    noise margin >= 2 bits; the TPU's run of the same arithmetic recorded
    3.1), 3 timed cycles and one profiled, then each stage of the cycle
    run alone (wall and device time);
@@ -214,7 +221,8 @@ CADD, CSUB, CMUL, DS_ADD = 22, 22, 58, 11
 COMBINE = CMUL + DS_ADD
 # the port's kernels (csrc/*.cu) by name; every other kernel in a profile
 # is PyTorch's: the glue around them
-PORT_KERNELS = ("accumulate_decompose_kernel", "rotate_sub_decompose_kernel", "fwd_ds_kernel",
+PORT_KERNELS = ("accumulate_decompose_kernel", "rotate_sub_decompose_kernel",
+                "ks_decompose_kernel", "ks_round_add_kernel", "fwd_ds_kernel",
                 "inv_ds_kernel", "mad_horner_kernel", "mad_plane_kernel", "mad_planes_kernel",
                 "mad_batched_kernel", "ks_mad_kernel",
                 "copy_kernel",
@@ -466,6 +474,7 @@ def phase_kernels(gen, hw):
           for kp in (3, 4, 6)),
         *batched_mad_cases(gen, dfft_cbs),
         *ks_mad_cases(gen),
+        *ks_halves_cases(gen),
         dict(
             name="fence",
             source="spf_tpu_torch/csrc/fence.cu",
@@ -636,6 +645,142 @@ def ks_mad_cases(gen) -> list:
             ops=z * k * KS_BATCH * k_in * l * kp1 * (CMUL + CADD),
         ))
     return cases
+
+
+def ks_halves_cases(gen) -> list:
+    """The coefficient-domain halves of the CBS keyswitch at the benchmark
+    cycle's shapes, B = KS_BATCH: `ks_decompose` on the trace's mask
+    [1, N, B] at tr_radix with round 0's table and on the scheme switch's
+    strided masks glev[:, :-1] of a GLEV [l_cbs, 2, N, B] at ss_radix;
+    `ks_round_add` at [2, N, B] with round 0's table. Torus values random
+    with 0, 2^63, -1 and each digit's carry edge first; the ds pairs over
+    the inverse FFT's range with the i32 clamps. Also held bit for bit at
+    every other round's table, with no table and without the sum, and at
+    N = 64 with B = 1, 3 and 129 (one column a thread)."""
+    from spf_tpu_torch.ops import cbs, encryption, rot_decomp, torus
+    from spf_tpu_torch.params import DEFAULT_128
+
+    dev = torch.device("cuda")
+    glwe = DEFAULT_128.l1_params
+    kp1, n, b = glwe.size + 1, glwe.degree, KS_BATCH
+    signed = lambda x: torus.encode_const(x, 64)  # x mod 2^64, as an int64
+    tr, ss, l_cbs = DEFAULT_128.tr_radix, DEFAULT_128.ss_radix, DEFAULT_128.cbs_radix.count
+    rounds = glwe.log_degree
+
+    def torus_at(shape):
+        x = encryption.uniform_torus(shape, gen)
+        edges = [0, -(1 << 63), -1]
+        for radix in (tr, ss):
+            shift = 64 - radix.radix_log * radix.count
+            edges += [1 << (shift - 1), (1 << (shift - 1)) - 1]
+            for j in range(radix.count):
+                at = shift + radix.radix_log * j
+                edges += [signed((1 << (radix.radix_log - 1)) << at),
+                          signed(((1 << (radix.radix_log - 1)) - 1) << at)]
+        edges += [signed(-e) for e in edges]
+        m = min(len(edges), x.numel())
+        x.view(-1)[:m] = torch.tensor(edges[:m], dtype=torch.int64, device=dev)
+        return x
+
+    def prod_at(shape):
+        exps = torch.randint(0, 86, shape, generator=gen, device=dev).float()
+        ph = torch.randn(shape, generator=gen, device=dev) * torch.exp2(exps)
+        pl = torch.randn(shape, generator=gen, device=dev) * torch.exp2((exps - 26).clamp(min=0))
+        ph.view(-1)[:5] = torch.tensor([2.0**31, -(2.0**31), 2.0**63, 2.0**84, 0.5], device=dev)
+        return ph, pl
+
+    def table(nn, rnd):
+        src, neg = cbs._trace_tables(nn, dev)
+        return src[rnd], neg[rnd]
+
+    small = [(64, bb) for bb in (1, 3, 129)]
+    ct = torus_at((kp1, n, b))
+    glev = torus_at((l_cbs, kp1, n, b))
+    prod = prod_at((kp1, n, b))
+    e = n * b
+    note = ("rot_decomp.cu's {}: parts: {}; also held bit for bit at every trace round's table "
+            "of N = 2048, and at N = 64 with B = 1, 3, 129")
+    return [
+        dict(
+            name="ks_decompose trace", row="ks_decompose",
+            source="spf_tpu_torch/csrc/rot_decomp.cu",
+            replaces="none: XLA glue on the TPU, cbs_u32.trace_u32's automorphism and "
+                     "keyswitch_glwe_u32's decomposition (spf_tpu/ops/cbs_u32.py)",
+            note=note.format("ks_decompose_kernel (automorphism, sign and gadget digits in one "
+                             "pass)", f"the trace's mask [1, {n}, {b}] at tr_radix "
+                             f"{tr.count}x{tr.radix_log} with round 0's table; the scheme "
+                             f"switch's strided masks [{l_cbs}, 1, {n}, {b}] at ss_radix "
+                             f"{ss.count}x{ss.radix_log}"),
+            kernel=lambda c, t: rot_decomp.ks_decompose(c[:-1], tr, t),
+            plain=lambda c, t: rot_decomp.ks_decompose_plain(c[:-1], tr, t),
+            args=(ct, table(n, 0)),
+            extra_args=[(ct, table(n, r)) for r in range(1, rounds)] + [(ct, None)]
+            + [(torus_at((kp1, nn, bb)), table(nn, r)) for nn, bb in small for r in (0, 3)],
+            reps=20,
+            # the mask read once (its table), the digits written once
+            nbytes=e * (8 + 4 * tr.count) + 9 * n, ops=0,
+        ),
+        dict(
+            name="ks_decompose scheme switch", row="ks_decompose",
+            source="spf_tpu_torch/csrc/rot_decomp.cu",
+            replaces="none: XLA glue on the TPU, scheme_switch_u32's decomposition",
+            kernel=lambda g: rot_decomp.ks_decompose(g[:, :-1], ss),
+            plain=lambda g: rot_decomp.ks_decompose_plain(g[:, :-1], ss),
+            args=(glev,),
+            extra_args=[(torus_at((l_cbs, kp1, nn, bb)),) for nn, bb in small],
+            reps=10, plain_copies=1,
+            nbytes=l_cbs * e * (8 + 4 * ss.count), ops=0,
+        ),
+        dict(
+            name="ks_round_add", source="spf_tpu_torch/csrc/rot_decomp.cu",
+            replaces="none: XLA glue on the TPU, keyswitch_glwe_u32's from_ds, negation and "
+                     "add of b and trace_u32's add",
+            note=note.format("ks_round_add_kernel (rounding, negation, the mapped b and the "
+                             "round's sum in one pass)", f"[{kp1}, {n}, {b}] with round 0's "
+                             "table and the sum; also with no table and no sum"),
+            kernel=lambda q, c, t, acc: rot_decomp.ks_round_add(q, c, t, acc),
+            plain=lambda q, c, t, acc: rot_decomp.ks_round_add_plain(q, c, t, acc),
+            args=(prod, ct, table(n, 0), True),
+            extra_args=[(prod, ct, table(n, r), True) for r in range(1, rounds)]
+            + [(prod, ct, None, False), (prod, ct, table(n, 5), False)]
+            + [(prod_at((kp1, nn, bb)), torus_at((kp1, nn, bb)), table(nn, r), r == 0)
+               for nn, bb in small for r in (0, 3)],
+            reps=20,
+            # the ds pair and ct read once (b is ct's row k, permuted), the output
+            # written once
+            nbytes=kp1 * e * (4 + 4 + 8 + 8) + 9 * n, ops=kp1 * e * 18,
+        ),
+    ]
+
+
+def lo_plane_options() -> dict:
+    """The forward FFT of a keyswitch's digits takes a zero lo plane: a
+    fresh zero tensor each call (what the CBS does) or one kept a shape.
+    Device ms of the fill alone and of the transform with each, at the
+    trace's digits [6, 1, N, B] and the scheme switch's [15, 4, 1, N, B]."""
+    from spf_tpu_torch.ops import fft
+    from spf_tpu_torch.params import DEFAULT_128
+
+    glwe = DEFAULT_128.l1_params
+    n, b = glwe.degree, KS_BATCH
+    out = {}
+    for label, shape in (("trace", (DEFAULT_128.tr_radix.count, 1, n, b)),
+                         ("scheme switch", (DEFAULT_128.ss_radix.count, DEFAULT_128.cbs_radix.count,
+                                            1, n, b))):
+        digits = torch.randint(-64, 64, shape, device="cuda").float()
+        nbytes = digits.numel() * 4
+        copies = cold_copies((digits,), 2 * nbytes)
+        reps = 10 if label == "trace" else 4
+        zero = torch.zeros_like(digits)
+        out[label] = dict(
+            shape=list(shape), kept_zero_bytes=nbytes,
+            fill_ms=device_ms(torch.zeros_like, copies, reps)[0],
+            fwd_fresh_zero_ms=device_ms(lambda d: fft.fwd_ds(d, torch.zeros_like(d)), copies,
+                                        reps)[0],
+            fwd_kept_zero_ms=device_ms(lambda d: fft.fwd_ds(d, zero), copies, reps)[0],
+        )
+        del digits, copies, zero
+    return out
 
 
 ROT_NS = (64, 1024, 2048)
@@ -1286,11 +1431,18 @@ def phase_single_bit():
     return by_path
 
 
+# the counters `ops/cbs.py` keeps of the keyswitch kernels' launches on a
+# card, and the kernels they count
+KS_COUNTERS = {"cbs.ks_mad_launches": "freq_mad_ks", "cbs.ks_decompose_launches": "ks_decompose",
+               "cbs.ks_round_launches": "ks_round_add"}
+
+
 def phase_cycle():
     """Path 3: the conversion cycle at DEFAULT_128, batch 256, g = 2.
     Returns its launches and (the module, its input) for path 13."""
     from spf_tpu_torch.ops.cbs import ConversionCycle
     from spf_tpu_torch.params import DEFAULT_128
+    from spf_tpu_torch.utils.profiling import metrics
 
     p = DEFAULT_128
     lwe = p.l0_params
@@ -1314,7 +1466,13 @@ def phase_cycle():
     # CBS output's batched row
     want = expect_launches(**dict(cbs, fwd_ds=cbs["fwd_ds"] + 1, inv_ds=cbs["inv_ds"] + 1,
                                   freq_mad_batched=1))
+    before = metrics.snapshot()
     out, first_s, launches, peak_gib = drive(lambda: cycle(ct), want, "path 3 (conversion cycle)")
+    # the program's own launch counters of the CBS keyswitch's kernels
+    counters = {k: metrics.snapshot().get(k, 0) - before.get(k, 0) for k in KS_COUNTERS}
+    want_counters = {k: cbs[name] for k, name in KS_COUNTERS.items()}
+    if counters != want_counters:
+        raise AssertionError(f"path 3: counters {counters}, want {want_counters}")
     n_correct, margin = decode(out, lwe_sk.astype(np.uint64), bits_in, bits=1)
     times, device_call_ms, by_kernel, glue, port_us = wall_and_device(lambda: cycle(ct), 3)
     med = statistics.median(times)
@@ -1325,7 +1483,8 @@ def phase_cycle():
         keygen_s=keygen_s, key_conversion_s=convert_s, first_call_s=first_s,
         correct=f"{n_correct}/{BATCH}", noise_margin_bits=margin,
         tpu_noise_margin_bits=TPU_CYCLE_MARGIN_BITS,
-        launches={k: v for k, v in launches.items() if v}, cycle_call_s=times,
+        launches={k: v for k, v in launches.items() if v}, cbs_counters=counters,
+        cycle_call_s=times,
         cycles_per_s_median=BATCH / med, device_ms_per_call=device_call_ms,
         device_busy_share=device_call_ms / 1e3 / med, device_ms_by_kernel=by_kernel,
         glue=glue, port_kernel_us_per_launch=port_us, peak_device_mem_gib=peak_gib,
@@ -1436,7 +1595,9 @@ def cbs_launches(p) -> dict:
     return dict(accumulate_decompose=ng, mad_horner_g2=ng, phase_factors=1,
                 fwd_ds=ng + rounds + 3,  # rotation, trace, scheme switch (b, digits, GLEV)
                 inv_ds=ng + rounds,  # rotation, trace
-                freq_mad_ks=rounds + p.l1_params.size)  # the trace, the scheme switch's rows
+                freq_mad_ks=rounds + p.l1_params.size,  # the trace, the scheme switch's rows
+                ks_decompose=rounds + 1,  # the trace, the scheme switch
+                ks_round_add=rounds)  # the trace
 
 
 def schedule_launches(p, *scheds) -> dict:
@@ -2442,6 +2603,7 @@ def main() -> int:
     bad = [r["name"] for r in results if not r["bitexact"]]
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: {bad}")
+    emit(dict(phase="ks_lo_plane", **timed("ks_lo_plane", lo_plane_options)))
 
     timed("small_pbs", phase_small_pbs)
     timed("small_single_bit_and_cycle", phase_small_single_bit_and_cycle)

@@ -62,6 +62,29 @@
 // share of the rows each and gather from one another's shared memory
 // (1.1-2.2x slower) or copy the other block's rows over before the gather
 // (1.1-1.4x); over 4 columns a block (half-sector stores: 1.2-1.9x).
+//
+// The same file holds the coefficient-domain halves of circuit
+// bootstrapping's GLWE keyswitch (spf_tpu_torch/ops/cbs.py; XLA glue on the
+// TPU, cbs_u32.keyswitch_glwe_u32 and trace_u32):
+//
+//   ks_decompose    the signed digits of GLWE masks [L, k, N, B] (any stride
+//                   between the L masks), or of their images under a trace
+//                   round's X -> X^k: row d reads row src[d], negated where
+//                   neg[d]
+//   ks_round_add    out = (ct or 0) - round(prod), and on row k also the
+//                   (mapped) b: ct[k, src[d]], negated where neg[d]
+//
+// Bit for bit with their plain versions (ops/rot_decomp.py: gather,
+// torus.decompose, torus.from_ds, neg and adds mod 2^64). Both are
+// elementwise passes bound by memory: one thread an element, grid-stride,
+// neighbouring threads on neighbouring batch columns, so the gather along N
+// reads whole rows and each digit plane is written in whole sectors. The
+// automorphism is applied in registers on the way in: the mapped ciphertext
+// is never written. ks_round_add takes two neighbouring columns a thread
+// where B is even (16-byte torus, 8-byte f32 accesses): 4% faster on an H100
+// at the cycle's [2, 2048, 2048]. ks_decompose does not: two columns a thread
+// stride its 4-byte digit stores by 8 bytes, half-sector writes that made it
+// 1.5x slower at the trace's shape and 2.8x at the scheme switch's (PERF.md).
 
 #include <algorithm>
 #include <cstdint>
@@ -115,6 +138,82 @@ __global__ void accumulate_decompose_kernel(const uint64_t* __restrict__ acc,
     const uint64_t a = acc[i] + from_ds(ph[i], pl[i]);
     acc_out[i] = a;
     write_digits(a, digits, e, i, count, log_b);
+  }
+}
+
+// The row that output row d of a trace round reads (d itself without a table).
+__device__ __forceinline__ int auto_src(const long long* __restrict__ src, int d) {
+  return src ? (int)src[d] : d;
+}
+
+__device__ __forceinline__ bool auto_neg(const unsigned char* __restrict__ neg, int d) {
+  return neg && neg[d];
+}
+
+// The signed digits of masks [L, R, N, B], blocks of `inner` = R*N*B
+// contiguous elements `stride` apart, or of their automorphic images, into
+// digits[count][e], e = L * inner, in the element order of [L, R, N, B].
+__global__ void ks_decompose_kernel(const uint64_t* __restrict__ ct,
+                                    const long long* __restrict__ src,
+                                    const unsigned char* __restrict__ neg,
+                                    float* __restrict__ digits, int e, int inner,
+                                    long long stride, int n, int b, int count, int log_b) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < e; i += gridDim.x * blockDim.x) {
+    const int blk = i / inner;
+    const int j = i - blk * inner;
+    const int rn = j / b;  // (r, d): the block's row
+    const int d = rn % n;
+    const uint64_t x =
+        ct[blk * stride + (long long)(rn - d + auto_src(src, d)) * b + (j - rn * b)];
+    write_digits(auto_neg(neg, d) ? 0ull - x : x, digits, e, i, count, log_b);
+  }
+}
+
+// out = (ct if accumulate, else 0) - round(ph + pl) over ct [k+1, N, B]; on
+// row k also + b, b = ct[k] (or its automorphic image), read in place: out
+// must not alias ct. VEC: two neighbouring columns a thread, 16-byte torus and
+// 8-byte f32 accesses.
+template <bool VEC>
+__global__ void ks_round_add_kernel(const uint64_t* __restrict__ ct, const float* __restrict__ ph,
+                                    const float* __restrict__ pl,
+                                    const long long* __restrict__ src,
+                                    const unsigned char* __restrict__ neg,
+                                    uint64_t* __restrict__ out, int e, int n, int b,
+                                    bool accumulate) {
+  constexpr int W = VEC ? 2 : 1;
+  const int k = e / (n * b) - 1;
+  const uint64_t* __restrict__ body = ct + (size_t)k * n * b;  // row k
+  for (int u = blockIdx.x * blockDim.x + threadIdx.x; u < e / W; u += gridDim.x * blockDim.x) {
+    const int i = u * W;
+    const int rn = i / b;  // (c, d)
+    const int c = rn / n;
+    const int d = rn - c * n;
+    const size_t at_b = (size_t)auto_src(src, d) * b + (i - rn * b);
+    if constexpr (VEC) {
+      const float2 h = *reinterpret_cast<const float2*>(ph + i);
+      const float2 l = *reinterpret_cast<const float2*>(pl + i);
+      ulonglong2 v = make_ulonglong2(0ull - from_ds(h.x, l.x), 0ull - from_ds(h.y, l.y));
+      if (accumulate) {
+        const ulonglong2 a = *reinterpret_cast<const ulonglong2*>(ct + i);
+        v.x += a.x;
+        v.y += a.y;
+      }
+      if (c == k) {
+        const ulonglong2 x = *reinterpret_cast<const ulonglong2*>(body + at_b);
+        const bool flip = auto_neg(neg, d);
+        v.x += flip ? 0ull - x.x : x.x;
+        v.y += flip ? 0ull - x.y : x.y;
+      }
+      *reinterpret_cast<ulonglong2*>(out + i) = v;
+    } else {
+      uint64_t v = 0ull - from_ds(ph[i], pl[i]);
+      if (accumulate) v += ct[i];
+      if (c == k) {
+        const uint64_t x = body[at_b];
+        v += auto_neg(neg, d) ? 0ull - x : x;
+      }
+      out[i] = v;
+    }
   }
 }
 
@@ -306,4 +405,45 @@ extern "C" int spf_rotate_sub_decompose_acc(const void* acc, const float* ph, co
   if (e < 1 || n < 1 || b < 1 || e % (n * b) != 0 || bad_radix(count, log_b))
     return static_cast<int>(cudaErrorInvalidValue);
   return launch_rotation<true>(acc, ph, pl, t, acc_out, digits, e, n, b, count, log_b, stream);
+}
+
+// masks u64 [L, R, N, B]: blocks of inner = R*N*B contiguous elements,
+// `stride` elements apart; src int64 [N] and neg u8 [N] (a trace round's
+// automorphism), or both null -> digits f32 [count, E], E = L * inner
+extern "C" int spf_ks_decompose(const void* ct, const void* src, const void* neg, float* digits,
+                                int e, int inner, long long stride, int n, int b, int count,
+                                int log_b, void* stream) {
+  if (e < 1 || n < 1 || b < 1 || inner < 1 || e % inner != 0 || inner % ((long long)n * b) != 0 ||
+      stride < inner || (src == nullptr) != (neg == nullptr) || bad_radix(count, log_b))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int threads = 256;
+  ks_decompose_kernel<<<blocks_for(e, threads), threads, 0, (cudaStream_t)stream>>>(
+      static_cast<const uint64_t*>(ct), static_cast<const long long*>(src),
+      static_cast<const unsigned char*>(neg), digits, e, inner, stride, n, b, count, log_b);
+  return spf_last_error();
+}
+
+// ct u64 [k+1, N, B], prod ds pair f32 [k+1, N, B] (E = (k+1)*N*B elements
+// each), src int64 [N] and neg u8 [N] or both null -> out u64 [k+1, N, B]:
+// (ct if accumulate, else 0) - round(prod), plus on row k the (mapped) b.
+// out must not alias ct.
+extern "C" int spf_ks_round_add(const void* ct, const float* ph, const float* pl, const void* src,
+                                const void* neg, void* out, int e, int n, int b, int accumulate,
+                                void* stream) {
+  if (e < 1 || n < 1 || b < 1 || e % ((long long)n * b) != 0 || out == ct ||
+      (src == nullptr) != (neg == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int threads = 256;
+  const auto* x = static_cast<const uint64_t*>(ct);
+  const auto* s = static_cast<const long long*>(src);
+  const auto* g = static_cast<const unsigned char*>(neg);
+  auto* o = static_cast<uint64_t*>(out);
+  if (b % 2 == 0 && (((uintptr_t)ct | (uintptr_t)out) & 15) == 0 &&
+      (((uintptr_t)ph | (uintptr_t)pl) & 7) == 0)
+    ks_round_add_kernel<true><<<blocks_for(e / 2, threads), threads, 0, (cudaStream_t)stream>>>(
+        x, ph, pl, s, g, o, e, n, b, accumulate != 0);
+  else
+    ks_round_add_kernel<false><<<blocks_for(e, threads), threads, 0, (cudaStream_t)stream>>>(
+        x, ph, pl, s, g, o, e, n, b, accumulate != 0);
+  return spf_last_error();
 }

@@ -12,7 +12,10 @@ is the g = 0 MAD under a batched row: each batch column reads its own
 GGSW row from a buffer of GGSWs (the CMux of the conversion cycle and of
 the circuit executors). Its third, `freq_mad_ks`, is the MAD of circuit
 bootstrapping's key switches (the trace's GLWE keyswitch and each row of
-the scheme switch): one key row that every column shares."""
+the scheme switch): one key row that every column shares. `rot_decomp.cu`'s
+`ks_decompose` and `ks_round_add` are the coefficient-domain halves of the
+same key switches: the digits going in, the rounding and the sums coming
+out."""
 
 from .build import Kernel
 
@@ -26,6 +29,10 @@ _ROTATE = ("rotate_sub_decompose_kernel",)
 ROTATE_SUB_DECOMPOSE = Kernel("rot_decomp", "spf_rotate_sub_decompose", "pppiiiiip", _ROTATE)
 ROTATE_SUB_DECOMPOSE_ACC = Kernel("rot_decomp", "spf_rotate_sub_decompose_acc",
                                   "pppppp" + "iiiii" + "p", _ROTATE)
+KS_DECOMPOSE = Kernel("rot_decomp", "spf_ks_decompose", "pppp" + "ii" + "q" + "iiii" + "p",
+                      ("ks_decompose_kernel",))
+KS_ROUND_ADD = Kernel("rot_decomp", "spf_ks_round_add", "pppppp" + "iiii" + "p",
+                      ("ks_round_add_kernel",))
 FWD_DS = Kernel("fft", "spf_fwd_ds", "ppppiiip", ("fwd_ds_kernel",))
 INV_DS = Kernel("fft", "spf_inv_ds", "ppppppiiip", ("inv_ds_kernel",))
 _MAD_ARGS = "p" * 20 + "iiiiii" + "p"
@@ -54,6 +61,8 @@ ALL = {
     "accumulate_decompose": ACCUMULATE_DECOMPOSE,
     "rotate_sub_decompose": ROTATE_SUB_DECOMPOSE,
     "rotate_sub_decompose_acc": ROTATE_SUB_DECOMPOSE_ACC,
+    "ks_decompose": KS_DECOMPOSE,
+    "ks_round_add": KS_ROUND_ADD,
     "fwd_ds": FWD_DS,
     "inv_ds": INV_DS,
     "mad_horner": MAD_HORNER,

@@ -21,15 +21,20 @@ Kernels on this path: the blind rotation's (multi-bit at the key's
 group size: `accumulate_decompose`, `mad_horner`, the FFTs, `phase_factors`),
 the forward and inverse FFTs of every keyswitch, the scheme switch and
 the CMux, the CMux's MAD under the batched row of the CBS output
-(`freq_mad_batched`), and the MAD of every GLWE keyswitch of the trace and
-of every row of the scheme switch (`freq_mad_ks`; XLA glue on the TPU).
+(`freq_mad_batched`), and, for every GLWE keyswitch of the trace and the
+scheme switch's rows, the MAD (`freq_mad_ks`) and the coefficient-domain
+halves around it (`ks_decompose`: the automorphism and the digits;
+`ks_round_add`: the rounding, the negation and the adds; XLA glue on the
+TPU).
 
 Each stage runs inside a span of `utils.profiling` (`cbs.rotate`,
 `cbs.levels`, `cbs.trace`, `cbs.scheme_switch`, `cycle.cmux`,
 `cycle.keyswitch`), and `metrics` counts `cbs.calls` and `cbs.lanes` a
-circuit bootstrap, `cbs.glwe_keyswitches` a GLWE keyswitch and
-`cbs.ks_mad_launches` a launch of the keyswitch MAD's kernel (on a card:
-log2(N) * l_cbs + k a circuit bootstrap).
+circuit bootstrap, `cbs.glwe_keyswitches` a GLWE keyswitch, and on a card
+the launches of the keyswitch kernels, a circuit bootstrap:
+`cbs.ks_mad_launches` log2(N) * l_cbs + k (the trace's, the scheme switch's
+rows), `cbs.ks_decompose_launches` log2(N) * l_cbs + 1 and
+`cbs.ks_round_launches` log2(N) * l_cbs.
 """
 
 from __future__ import annotations
@@ -42,14 +47,13 @@ from torch import nn
 
 from ..params import GlweDef, Params, RadixDecomposition
 from ..utils.profiling import metrics, span
-from . import mad, torus
+from . import fft, mad, rot_decomp, torus
 from .bootstrap import (
     as_tensor,
     blind_rotate,
     cmux,
     fwd_limb,
     fwd_signed,
-    inv_limb,
     register_spectra,
     sample_extract,
     spectra,
@@ -86,23 +90,41 @@ def multifunctional_cbs_lut_np(glwe: GlweDef, cbs_radix: RadixDecomposition) -> 
     return lut
 
 
+def _count_launch(counter: str, t: torch.Tensor) -> None:
+    """Count a launch of a kernel as `counter`, on a card only (CPU tensors
+    run the plain versions)."""
+    if t.is_cuda:
+        metrics.inc(counter)
+
+
 def _ks_mad(dfft, key_row, init=None, init_plane: int = 0):
     """`mad.freq_mad_ks`, each launch of its kernel counted as
     `cbs.ks_mad_launches`."""
     out = mad.freq_mad_ks(dfft, key_row, init, init_plane)
-    if dfft[0].is_cuda:
-        metrics.inc("cbs.ks_mad_launches")
+    _count_launch("cbs.ks_mad_launches", dfft[0])
     return out
 
 
-def keyswitch_glwe(ct: torch.Tensor, ksk_row, glwe: GlweDef, radix: RadixDecomposition):
+def _ks_decompose(masks, radix: RadixDecomposition, table=None):
+    """`rot_decomp.ks_decompose`, each launch counted as
+    `cbs.ks_decompose_launches`."""
+    out = rot_decomp.ks_decompose(masks, radix, table)
+    _count_launch("cbs.ks_decompose_launches", masks)
+    return out
+
+
+def keyswitch_glwe(ct: torch.Tensor, ksk_row, glwe: GlweDef, radix: RadixDecomposition,
+                   table=None, accumulate: bool = False):
     """GLWE keyswitch: ct int64 [k+1, N, B], key spectra 4 planes
-    [k, l, k+1, K] -> int64 [k+1, N, B] (≙ `cbs_u32.keyswitch_glwe_u32`)."""
+    [k, l, k+1, K] -> int64 [k+1, N, B] (≙ `cbs_u32.keyswitch_glwe_u32`).
+    With `table`, a trace round's (src, neg) of `_trace_tables`, the
+    keyswitch of ct's image under the round's X -> X^k, read in place; with
+    `accumulate`, ct plus the keyswitch (the trace round's sum)."""
     metrics.inc("cbs.glwe_keyswitches")
-    a, b = ct[:-1], ct[-1]
-    dfft = fwd_signed(torus.decompose(a, radix))  # [l, k, K, B]
-    out = torus.neg(inv_limb(_ks_mad(dfft, ksk_row)))
-    out[-1] = torus.add(out[-1], b)
+    dfft = fwd_signed(_ks_decompose(ct[:-1], radix, table))  # [l, k, K, B]
+    prod = fft.inv_ds(_ks_mad(dfft, ksk_row))
+    out = rot_decomp.ks_round_add(prod, ct, table, accumulate)
+    _count_launch("cbs.ks_round_launches", ct)
     return out
 
 
@@ -132,10 +154,8 @@ def trace(ct: torch.Tensor, auto_keys_freq, glwe: GlweDef, radix: RadixDecomposi
     (≙ `cbs_u32.trace_u32`)."""
     src, neg = _trace_tables(glwe.degree, ct.device)
     for r in range(src.shape[0]):
-        mapped = ct[..., src[r], :]
-        mapped = torch.where(neg[r][:, None], -mapped, mapped)
-        ks = keyswitch_glwe(mapped, tuple(c[r] for c in auto_keys_freq), glwe, radix)
-        ct = torus.add(ct, ks)
+        ct = keyswitch_glwe(ct, tuple(c[r] for c in auto_keys_freq), glwe, radix,
+                            (src[r], neg[r]), accumulate=True)
     return ct
 
 
@@ -146,9 +166,8 @@ def scheme_switch(glev: torch.Tensor, ssk_freq, glwe: GlweDef,
     [k+1, l_ggsw, k+1, K, B]; ssk_freq 4 planes [k, k, l_ss, k+1, K]
     (≙ `cbs_u32.scheme_switch_u32`)."""
     kp1 = glwe.size + 1
-    a, b = glev[:, :-1], glev[:, -1]  # [l, k, N, B], [l, N, B]
-    b_fft = fwd_limb(b)  # [l, K, B]
-    dfft = fwd_signed(torus.decompose(a, radix_ss))  # [l_ss, l, k, K, B]
+    b_fft = fwd_limb(glev[:, -1])  # [l, K, B]
+    dfft = fwd_signed(_ks_decompose(glev[:, :-1], radix_ss))  # [l_ss, l, k, K, B]
     # row j: GLEV(b) in column j, plus the product with the key row [k, l_ss, k+1, K]
     rows = [_ks_mad(dfft, tuple(c[j] for c in ssk_freq), b_fft, j) for j in range(glwe.size)]
     rows.append(fwd_limb(glev))  # row k: GLEV(m) itself

@@ -24,7 +24,13 @@ call, with inputs rotating past the L2; host us a call):
   [2, 2048, B] for B = 256 and 64 (radix 2x16), and `accumulate_decompose`
   at B = 256. `--check DIR` also holds the two rotation kernels bit for
   bit at N in {2, 64, 1024, 2048}, B in {1, 3, 8, 64, 129, 256} and P in
-  {1, 2, 3}, with t at its edges and beyond 2N. Each run also drives path 2
+  {1, 2, 3}, with t at its edges and beyond 2N. It also times the CBS
+  keyswitch's halves at the benchmark cycle's shapes (N = B = 2048):
+  `ks_decompose` at the trace's [1, N, B] (tr_radix 6x7, round 0's table)
+  and on a GLEV's strided masks [4, 1, N, B] (ss_radix 15x3, no table), and
+  `ks_round_add` at [2, N, B] (round 0), each against its byte bound; `--check
+  DIR` holds them bit for bit at the same N x B x P (P the GLEV's levels)
+  and every trace round of N. Each run also drives path 2
   (the single-bit PBS at DEFAULT_128, batch 256) once in its plain and its
   fuse_rot form under the profiler: the rotation kernel's device ms a
   launch there and the path's device ms a call.
@@ -207,6 +213,38 @@ for b in (256, 64):
         ok = same(kernel(*args), plain(*args))
         ms, host_us = device_ms(kernel, copies(args, nbytes), 50)
         res[f"{name} B={b}"] = dict(bitexact=ok, ms=ms, host_us=host_us)
+
+# the CBS keyswitch's halves at the benchmark cycle's shapes (N = B = 2048):
+# the trace's front (tr_radix, a round's table) and back, the scheme
+# switch's front (ss_radix) on the strided masks of a GLEV [4, 2, N, B]
+from spf_tpu_torch.ops import cbs
+
+tr, ss = DEFAULT_128.tr_radix, DEFAULT_128.ss_radix
+
+def ks_kernels(p, n, b, rnd):
+    ct = encryption.uniform_torus((2, n, b), gen)
+    glev = encryption.uniform_torus((p, 2, n, b), gen)
+    _, prod, _ = inputs(2, n, b)
+    src, neg = cbs._trace_tables(n, torch.device("cuda"))
+    table = (src[rnd], neg[rnd])
+    e = n * b
+    return {
+        "ks_decompose trace": (lambda c, t: rot_decomp.ks_decompose(c[:-1], tr, t),
+                               lambda c, t: rot_decomp.ks_decompose_plain(c[:-1], tr, t),
+                               (ct, table), e * (8 + 4 * tr.count)),
+        "ks_decompose scheme switch": (lambda g: rot_decomp.ks_decompose(g[:, :-1], ss),
+                                       lambda g: rot_decomp.ks_decompose_plain(g[:, :-1], ss),
+                                       (glev,), p * e * (8 + 4 * ss.count)),
+        "ks_round_add": (lambda q, c, t: rot_decomp.ks_round_add(q, c, t),
+                         lambda q, c, t: rot_decomp.ks_round_add_plain(q, c, t),
+                         (prod, ct, table), 2 * e * 24),
+    }
+
+for name, (kernel, plain, args, nbytes) in ks_kernels(4, 2048, 2048, 0).items():
+    ok = same(kernel(*args), plain(*args))
+    ms, host_us = device_ms(kernel, copies(args, nbytes), 20)
+    bound = nbytes / 3.35e9  # ms at the HBM3 rate
+    res[name] = dict(bitexact=ok, ms=ms, host_us=host_us, bound_ms=bound, share=bound / ms)
 if sys.argv[1] == "check":
     bad, n = [], 0
     for nn in (2, 64, 1024, 2048):
@@ -217,6 +255,12 @@ if sys.argv[1] == "check":
                     n += 1
                     if not same(kernel(*args), plain(*args)):
                         bad.append([name, p, nn, b])
+            # the keyswitch's halves at every trace round of N
+            for rnd in range(max(1, nn.bit_length() - 1)):
+                for name, (kernel, plain, args, _) in ks_kernels(p, nn, b, rnd).items():
+                    n += 1
+                    if not same(kernel(*args), plain(*args)):
+                        bad.append([name, p, nn, b, rnd])
     res["shapes"] = dict(checked=n, not_bitexact=bad)
 
 # in path 2 (the single-bit PBS at DEFAULT_128, batch 256), plain and

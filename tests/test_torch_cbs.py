@@ -38,8 +38,8 @@ from spf_tpu.params import LweDef as JLwe
 from spf_tpu.params import RadixDecomposition as JRadix
 from spf_tpu.utils import host_crypto as hc
 from spf_tpu_torch import convert
-from spf_tpu_torch.ops import bootstrap, cbs, encryption, keyswitch, multibit, torus
-from spf_tpu_torch.params import RadixDecomposition
+from spf_tpu_torch.ops import bootstrap, cbs, encryption, keyswitch, multibit, rot_decomp, torus
+from spf_tpu_torch.params import TEST_RADIX, TORUS_BITS, RadixDecomposition
 from spf_tpu_torch.utils.profiling import metrics
 
 torch.set_num_threads(1)
@@ -386,3 +386,183 @@ def test_ks_mad_launch_counter_stays_zero_on_the_cpu(keys):
     after = metrics.snapshot()
     assert after.get("cbs.glwe_keyswitches", 0) - before.get("cbs.glwe_keyswitches", 0) == 1
     assert after.get("cbs.ks_mad_launches", 0) == before.get("cbs.ks_mad_launches", 0) == 0
+
+
+# The coefficient-domain halves of a GLWE keyswitch (`rot_decomp.ks_decompose`,
+# `ks_round_add`): their plain versions against the composition the trace and
+# the scheme switch ran before them, and the element -> address map of their
+# kernels (`csrc/rot_decomp.cu`), modelled on the CPU
+
+KS_RADICES = {"tr_radix": PARAMS.tr_radix, "ss_radix": PARAMS.ss_radix, "test_radix": TEST_RADIX}
+# None: no table; an int: that trace round's table; "glev": the scheme
+# switch's strided masks glev[:, :-1]
+KS_SOURCES = [None, *range(GLWE.log_degree), "glev"]
+
+
+def _edge_torus(seed, shape, radix):
+    """Random torus values, the first of them 0, 2^63, -1, the rounding
+    boundary of the dropped low bits, and each digit at B/2 (where its carry
+    starts) and B/2 - 1, each also negated."""
+    x = _random_torus(seed, shape).reshape(-1)
+    log_b, shift = radix.radix_log, TORUS_BITS - radix.radix_log * radix.count
+    edges = [0, 1 << 63, (1 << 64) - 1]
+    if shift:
+        edges += [1 << (shift - 1), (1 << (shift - 1)) - 1, (3 << (shift - 1)) % (1 << 64)]
+    for j in range(radix.count):
+        at = shift + log_b * j
+        edges += [((1 << (log_b - 1)) << at) % (1 << 64), (((1 << (log_b - 1)) - 1) << at)]
+    edges += [(-e) % (1 << 64) for e in edges]
+    x[:len(edges)] = edges
+    return x.reshape(shape)
+
+
+def _edge_ds(seed, shape):
+    """ds pairs f32 over the inverse FFT's range (up to ~2^85), the first of
+    them the f32 -> i32 clamp edges, halves (round half to even) and values
+    near +-2^85."""
+    rng = np.random.default_rng(seed)
+    n = int(np.prod(shape))
+    exps = rng.integers(0, 86, size=n)
+    vh = (rng.standard_normal(n) * np.exp2(exps)).astype(np.float32)
+    vl = (rng.standard_normal(n) * np.exp2(np.maximum(exps - 26, 0))).astype(np.float32)
+    edges = [(e, 0.0) for e in (2.0**31, -(2.0**31), 3 * 2.0**31, 2.0**63, -(2.0**63), 0.5, 1.5,
+                                2.5, -0.5, -1.5, 2.0**31 - 0.5)]
+    edges += [(2.0**31, 2.0**31), (0.0, 2.0**31), (1.0, 2.0**31), (0.5, 0.5), (2.0**24, 0.5)]
+    edges += [(s * np.float32(2.0**85) * np.float32(1 - 2.0**-23), s * 2.0**60) for s in (1, -1)]
+    edges += [(s * 2.0**85, -s * 2.0**61) for s in (1, -1)]
+    vh[:len(edges)], vl[:len(edges)] = zip(*edges)
+    return tuple(torch.from_numpy(v.reshape(shape)) for v in (vh, vl))
+
+
+def _masks_and_table(source, radix):
+    """(the ciphertext or GLEV, the masks the kernel reads, the table, the
+    masks as the old composition mapped them)."""
+    if source == "glev":
+        ct = torus.from_u64_np(_edge_torus(11, (PARAMS.cbs_radix.count, 2, N, B), radix))
+        return ct, ct[:, :-1], None, ct[:, :-1]
+    ct = torus.from_u64_np(_edge_torus(12, (2, N, B), radix))
+    if source is None:
+        return ct, ct[:-1], None, ct[:-1]
+    src, neg = cbs._trace_tables(N, ct.device)
+    mapped = ct[..., src[source], :]
+    mapped = torch.where(neg[source][:, None], -mapped, mapped)
+    return ct, ct[:-1], (src[source], neg[source]), mapped[:-1]
+
+
+def _flat(t, size):
+    """The `size` storage elements from t's first element on."""
+    return torch.as_strided(t, (size,), (1,))
+
+
+def _ks_decompose_model(masks, radix, table):
+    """`ks_decompose_kernel`'s map: element i of [L, R, N, B] reads the
+    storage at blk * stride + (rn - d + src[d]) * B + col (blk = i / inner,
+    rn = (i mod inner) / B, d = rn mod N), negated where neg[d]; its digit
+    d' goes to digits[d' * E + i]."""
+    m4 = masks if masks.dim() == 4 else masks[None]
+    lead, r, n, b = m4.shape
+    inner = r * n * b
+    stride = m4.stride(0) if lead > 1 else inner
+    flat = _flat(m4, (lead - 1) * stride + inner)
+    i = torch.arange(lead * inner)
+    blk = i // inner
+    j = i - blk * inner
+    rn = j // b
+    d = rn % n
+    src = d if table is None else table[0][d]
+    x = flat[blk * stride + (rn - d + src) * b + (j - rn * b)]
+    if table is not None:
+        x = torch.where(table[1][d], -x, x)
+    return torus.decompose(x, radix).to(torch.float32).reshape(radix.count, *masks.shape)
+
+
+def _ks_round_add_model(prod, ct, table, accumulate):
+    """`ks_round_add_kernel`'s map: element i = (c, d, col) of [k+1, N, B]
+    is (ct[i] or 0) - from_ds(prod[i]), plus on c = k the storage of row k
+    at src[d] * B + col, negated where neg[d]."""
+    kp1, n, b = ct.shape
+    flat = ct.reshape(-1)
+    i = torch.arange(ct.numel())
+    rn = i // b
+    c = rn // n
+    d = rn - c * n
+    src = d if table is None else table[0][d]
+    x = flat[(kp1 - 1) * n * b + src * b + (i - rn * b)]
+    if table is not None:
+        x = torch.where(table[1][d], -x, x)
+    v = -torus.from_ds(*(p.reshape(-1) for p in prod))
+    if accumulate:
+        v = v + flat
+    return torch.where(c == kp1 - 1, v + x, v).reshape(ct.shape)
+
+
+@pytest.mark.parametrize("source", KS_SOURCES, ids=str)
+@pytest.mark.parametrize("radix_name", sorted(KS_RADICES))
+def test_ks_decompose_plain_is_the_old_composition(radix_name, source):
+    """The front of a GLWE keyswitch: bit for bit with the gather, sign,
+    `torus.decompose` and cast the trace and the scheme switch ran, on each
+    trace round's table, with none, and on the scheme switch's strided
+    masks; the kernel's address map gives the same digits."""
+    radix = KS_RADICES[radix_name]
+    _, masks, table, mapped = _masks_and_table(source, radix)
+    want = torus.decompose(mapped, radix).to(torch.float32)
+    got = rot_decomp.ks_decompose_plain(masks, radix, table)
+    assert got.shape == (radix.count, *masks.shape)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(_ks_decompose_model(masks, radix, table).view(torch.int32),
+                       want.view(torch.int32))
+    assert torch.equal(rot_decomp.ks_decompose(masks, radix, table), got)  # the CPU dispatch
+
+
+@pytest.mark.parametrize("accumulate", [True, False])
+@pytest.mark.parametrize("source", KS_SOURCES[:-1], ids=str)
+def test_ks_round_add_plain_is_the_old_composition(source, accumulate):
+    """The back of a GLWE keyswitch: bit for bit with `from_ds`, the
+    negation, the add of (mapped) b and the trace's add; the kernel's
+    address map gives the same values."""
+    ct, _, table, _ = _masks_and_table(source, PARAMS.tr_radix)
+    if table is not None:
+        mapped = ct[..., table[0], :]
+        mapped = torch.where(table[1][:, None], -mapped, mapped)
+    else:
+        mapped = ct
+    prod = _edge_ds(13, tuple(ct.shape))
+    ks = torus.neg(torus.from_ds(*prod))
+    ks[-1] = torus.add(ks[-1], mapped[-1])
+    want = torus.add(ct, ks) if accumulate else ks
+    got = rot_decomp.ks_round_add_plain(prod, ct, table, accumulate)
+    assert torch.equal(got, want)
+    assert torch.equal(_ks_round_add_model(prod, ct, table, accumulate), want)
+    assert torch.equal(rot_decomp.ks_round_add(prod, ct, table, accumulate), got)
+
+
+@pytest.mark.parametrize("rnd", range(GLWE.log_degree))
+def test_keyswitch_glwe_reads_the_round_in_place(keys, rnd):
+    """A trace round's keyswitch with its table is the keyswitch of the
+    mapped ciphertext; with `accumulate` the ciphertext plus it."""
+    ct = torus.from_u64_np(_random_torus(14, (2, N, B)))
+    src, neg = cbs._trace_tables(N, ct.device)
+    mapped = ct[..., src[rnd], :]
+    mapped = torch.where(neg[rnd][:, None], -mapped, mapped)
+    row = tuple(c[rnd] for c in keys["ak_freq"])
+    want = cbs.keyswitch_glwe(mapped, row, GLWE, PARAMS.tr_radix)
+    table = (src[rnd], neg[rnd])
+    assert torch.equal(cbs.keyswitch_glwe(ct, row, GLWE, PARAMS.tr_radix, table), want)
+    got = cbs.keyswitch_glwe(ct, row, GLWE, PARAMS.tr_radix, table, accumulate=True)
+    assert torch.equal(got, torus.add(ct, want))
+
+
+def test_ks_front_and_back_launch_counters_stay_zero_on_the_cpu(keys):
+    """On CPU tensors the keyswitch's halves run their plain versions: a
+    trace and a scheme switch count their keyswitches and no launch of
+    either kernel."""
+    before = metrics.snapshot()
+    ct = torus.from_u64_np(_random_torus(15, (2, N, B)))
+    cbs.trace(ct, keys["ak_freq"], GLWE, PARAMS.tr_radix)
+    glev = torus.from_u64_np(_random_torus(16, (PARAMS.cbs_radix.count, 2, N, B)))
+    cbs.scheme_switch(glev, keys["ssk_freq"], GLWE, PARAMS.cbs_radix, PARAMS.ss_radix)
+    after = metrics.snapshot()
+    assert (after.get("cbs.glwe_keyswitches", 0) - before.get("cbs.glwe_keyswitches", 0)
+            == GLWE.log_degree)
+    for name in ("cbs.ks_decompose_launches", "cbs.ks_round_launches"):
+        assert after.get(name, 0) == before.get(name, 0) == 0
