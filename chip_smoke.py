@@ -1704,8 +1704,9 @@ def phase_intop(keys: WaveKeys):
     read around it and held against the schedule's, decryption (every
     instance right, worst margin >= 2 bits, beside the TPU's), wave
     statistics beside the TPU's, add8 also through the per-wave
-    U32CircuitExecutor (the same decryption), then the median latency of
-    TIMED_CALLS calls and one profiled call."""
+    U32CircuitExecutor (the same decryption), then a second call (it
+    captures the schedule's CUDA graphs), the median latency of
+    TIMED_CALLS calls (replays) and one profiled call."""
     from spf_tpu_torch.runtime.executor_u32 import U32CircuitExecutor
     from spf_tpu_torch.runtime.wave_machine import WaveMachine
     from spf_tpu_torch.params import DEFAULT_128
@@ -1748,6 +1749,7 @@ def phase_intop(keys: WaveKeys):
             if pw_values != values:
                 failures.append(f"add8: the per-wave executor decrypts {pw_values}, the wave "
                                 f"machine {values}")
+        wm.run(g, inputs)
         times, device_call_ms, by_kernel, glue, port_us = wall_and_device(
             lambda: wm.run(g, inputs), TIMED_CALLS[name])
         med = statistics.median(times)

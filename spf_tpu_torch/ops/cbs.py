@@ -90,6 +90,16 @@ def multifunctional_cbs_lut_np(glwe: GlweDef, cbs_radix: RadixDecomposition) -> 
     return lut
 
 
+# Device tables are cached without bound: a CUDA graph that the wave
+# machine captured (`runtime/wave_machine.py`) reads them by address on
+# every replay, so an evicted table would be freed under it.
+@functools.lru_cache(maxsize=None)
+def _cbs_lut(glwe: GlweDef, cbs_radix: RadixDecomposition, device: torch.device) -> torch.Tensor:
+    """`multifunctional_cbs_lut_np` on `device`, int64 [k+1, N], copied
+    once (a copy from the host inside a captured graph is not allowed)."""
+    return torus.from_u64_np(multifunctional_cbs_lut_np(glwe, cbs_radix)).to(device)
+
+
 def _count_launch(counter: str, t: torch.Tensor) -> None:
     """Count a launch of a kernel as `counter`, on a card only (CPU tensors
     run the plain versions)."""
@@ -128,7 +138,7 @@ def keyswitch_glwe(ct: torch.Tensor, ksk_row, glwe: GlweDef, radix: RadixDecompo
     return out
 
 
-@functools.lru_cache(maxsize=8)
+@functools.lru_cache(maxsize=None)  # never evicted: see `_cbs_lut`
 def _trace_tables(n: int, device: torch.device):
     """Per-round X -> X^k tables of the trace, on `device`: for round r
     (1-based), k = N/2^(r-1) + 1; src[r-1, d] is the coefficient that lands
@@ -187,7 +197,7 @@ def cbs_blind_rotate(ct: torch.Tensor, bsk_freq, params: Params, phase_rot: bool
     cbs_radix = params.cbs_radix
     ct_rot = ct.clone()
     ct_rot[-1] = torus.add_small(ct[-1], torus.encode_const(1, 2))
-    lut = torus.from_u64_np(multifunctional_cbs_lut_np(glwe, cbs_radix)).to(ct.device)
+    lut = _cbs_lut(glwe, cbs_radix, ct.device)
     ct_sw = torus.modulus_switch(ct_rot, 0, _log_v(cbs_radix.count), glwe.log_degree + 1)
     if bsk_freq[0].dim() == 6:
         ns = bsk_freq[0].shape[1]

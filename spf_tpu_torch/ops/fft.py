@@ -143,7 +143,9 @@ def kernel_tables_np(k: int, inverse: bool) -> np.ndarray:
     return tab
 
 
-@functools.lru_cache(maxsize=32)
+# never evicted: a CUDA graph captured by `runtime/wave_machine.py` reads
+# the tables by address on every replay
+@functools.lru_cache(maxsize=None)
 def _kernel_tables(k: int, inverse: bool, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(kernel_tables_np(k, inverse)).to(device)
 

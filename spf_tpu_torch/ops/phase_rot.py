@@ -46,7 +46,9 @@ def _psi_table_np(two_n: int):
     return (*ds.from_f64_array(w.real), *ds.from_f64_array(w.imag))
 
 
-@functools.lru_cache(maxsize=8)
+# never evicted: a CUDA graph captured by `runtime/wave_machine.py` reads
+# the table by address on every replay
+@functools.lru_cache(maxsize=None)
 def _psi_table(two_n: int, device: torch.device):
     return tuple(torch.from_numpy(c).to(device) for c in _psi_table_np(two_n))
 

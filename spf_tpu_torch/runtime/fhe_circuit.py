@@ -14,7 +14,11 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+import hashlib
+import itertools
 from collections import deque
+
+import numpy as np
 
 
 class FheOp(enum.Enum):
@@ -165,19 +169,42 @@ class Node:
 DEFAULT_MUX_REFRESH_DEPTH = 64
 
 
+# an edge role's code in `FheCircuit.structure_key`
+_EDGE_CODE = {r: i for i, r in enumerate(FheEdge)}
+
+
 class FheCircuit:
-    """Mutable DAG builder."""
+    """A mutable DAG of FHE ops. Grow it through `add_node` and `add_edge`
+    only: they drop the memoised `structure_key`."""
 
     def __init__(self):
         self.nodes: list[Node] = []
         self.edges: list[tuple[int, int, FheEdge]] = []
+        self._structure_key: bytes | None = None
 
     def add_node(self, op: FheOp, param=None) -> int:
+        self._structure_key = None
         self.nodes.append(Node(op, param))
         return len(self.nodes) - 1
 
     def add_edge(self, src: int, dst: int, role: FheEdge) -> None:
+        self._structure_key = None
         self.edges.append((src, dst, role))
+
+    def structure_key(self) -> bytes:
+        """A 256-bit digest of the graph's structure (every node's op and
+        param, every edge, in order): equal for structurally equal
+        circuits. Computed once (about a second at 5 x 10^5 nodes) and
+        kept until the next `add_node` / `add_edge`, so an executor can
+        key its schedules by it on every run."""
+        if self._structure_key is None:
+            h = hashlib.blake2b(digest_size=32)
+            h.update(np.array([len(self.nodes), len(self.edges)], dtype=np.int64).tobytes())
+            h.update("\x1e".join(f"{n.op.value}\x1f{n.param!r}" for n in self.nodes).encode())
+            edges = itertools.chain.from_iterable((s, d, _EDGE_CODE[r]) for s, d, r in self.edges)
+            h.update(np.fromiter(edges, dtype=np.int64, count=3 * len(self.edges)).tobytes())
+            self._structure_key = h.digest()
+        return self._structure_key
 
     # --- queries ---
 

@@ -19,6 +19,25 @@ Port of `spf_tpu/runtime/wave_machine.py` on int64 wires:
    (`cmux_scan`); the reference runs each as one `lax.scan`, here a loop
    over the stacked waves in order, each reading what the one before it
    wrote.
+4. **Spans and counters.** A run is one `wm.run` span; each stretch of
+   consecutive waves of one kind is one span (`wm.cmux`: single and
+   stacked CMux waves; `wm.convert`, `wm.refresh`, `wm.cbs`; `wm.other`:
+   external products, adds, NOTs, monomial products, extractions and
+   keyswitches), opened once a stretch and not once a wave. Each run adds
+   the schedule's counts to the `wm.*` counters (`schedule_counts`),
+   read from the schedule on the host, never from the device.
+5. **Replayed stretches on a card.** The first run of a schedule on a
+   CUDA device runs eagerly: it loads every kernel and fills every cache
+   the waves read. The second captures each stretch into a CUDA graph
+   over buffers kept with the schedule (one memory pool for all of them,
+   replayed in the order they were captured), and that run and every later
+   one zeroes the buffers, scatters the inputs, replays the stretches
+   (each in its span, so a span clock times its graph) and gathers the
+   outputs. A run then costs the host one launch a stretch in place of a
+   few hundred thousand operators, the same kernels on the same operands
+   (a circuit run once keeps the eager path). Host-side counters inside
+   the waves (`cbs.*`, the kernels' launch counts) and the `cbs.*` spans
+   count the capture, not the replays.
 
 Layouts. GLWE and LWE buffers are batch-last, int64 [k+1, N, S+1] and
 [n+1, S+1]: the port's ops take [k+1, N, B], so a gather along the last
@@ -40,7 +59,9 @@ the same operands; only operand routing differs. (≙ reference scheduler
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 
 import numpy as np
 import torch
@@ -51,7 +72,7 @@ from ..ops.cbs import circuit_bootstrap
 from ..ops.keyswitch import keyswitch_lwe
 from ..ops.mux_eval_u32 import trivial_bit_glwe
 from ..params import GlweDef, Params
-from ..utils.profiling import metrics
+from ..utils.profiling import metrics, span
 from .executor_u32 import U32ComputeKey, not_glwe, wave_stats
 from .fhe_circuit import CircuitError, FheCircuit, FheEdge, FheOp
 
@@ -151,11 +172,31 @@ class Schedule:
     uses_ggsw_consts: bool = False  # ZERO_GGSW1/ONE_GGSW1 present
 
 
+@contextlib.contextmanager
+def _gc_paused():
+    """The cyclic garbage collector off within the block: code that keeps
+    every small object it allocates until it returns would make each
+    collection walk its whole growing heap again (a third of the schedule
+    build of 5 x 10^5 nodes)."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
+
+
 def build_schedule(circuit: FheCircuit, collect_outputs: bool = True) -> Schedule:
     """Compile an FheCircuit into a wave schedule (host-only; cached by
     circuit structure in `WaveMachine`). A copy of the reference's
     `build_schedule`: the same waves, groups, widths, index arrays and
     slot counts."""
+    with _gc_paused():
+        return _build_schedule(circuit)
+
+
+def _build_schedule(circuit: FheCircuit) -> Schedule:
     circuit.validate()
     n = len(circuit.nodes)
     ops: list = [nd.op for nd in circuit.nodes]
@@ -625,6 +666,54 @@ WAVES = {
 }
 
 
+# the span of each wave group's stretches (every other group: "wm.other")
+_SPAN_OF_GROUP = {"cmux": "wm.cmux", "cmux_scan": "wm.cmux", "convert": "wm.convert",
+                  "refresh": "wm.refresh", "cbs": "wm.cbs"}
+
+
+def schedule_counts(sched: Schedule) -> dict:
+    """What one run of `sched` adds to the `wm.*` counters: `wm.calls` 1;
+    `wm.waves`, a stacked CMux run counted as its stacked waves;
+    `wm.lanes`, their padded widths; `wm.gates`, their real gates;
+    `wm.cbs_gates`, the real gates of the waves that run a circuit
+    bootstrap (convert, refresh, cbs)."""
+    waves = lanes = gates = cbs_gates = 0
+    for w in sched.waves:
+        r = w.idx["out"].shape[0] if w.group == "cmux_scan" else 1
+        waves += r
+        lanes += r * w.width
+        gates += w.gates
+        if w.group in _DEFERRED:
+            cbs_gates += w.gates
+    return {"wm.calls": 1, "wm.waves": waves, "wm.lanes": lanes, "wm.gates": gates,
+            "wm.cbs_gates": cbs_gates}
+
+
+def span_runs(sched: Schedule, waves: list) -> list:
+    """The schedule's waves, each with its device index arrays `waves`, cut
+    into stretches of one span: [(span name, [(wave function, indices)])]."""
+    runs: list = []
+    for w, ix in zip(sched.waves, waves):
+        name = _SPAN_OF_GROUP.get(w.group, "wm.other")
+        if not runs or runs[-1][0] != name:
+            runs.append((name, []))
+        runs[-1][1].append((WAVES[w.group], ix))
+    return runs
+
+
+@dataclasses.dataclass
+class Compiled:
+    """A schedule as `WaveMachine.run` uses it: its index arrays on the
+    device, cut into span stretches, and the counts a run adds; on a card,
+    after its first run, its buffers and one CUDA graph a stretch."""
+    schedule: Schedule
+    runs: list
+    counts: dict
+    ran: bool = False  # an eager run has loaded every kernel and cache
+    bufs: dict | None = None
+    graphs: list | None = None
+
+
 def device_indices(idx: dict, device) -> dict:
     """A wave's index arrays on the device: int64 (gathers, scatters,
     extraction indices, monomial powers), the CMux selects int32 (the slot
@@ -652,12 +741,29 @@ class WaveMachine:
     # -- public API ----------------------------------------------------
 
     def run(self, circuit: FheCircuit, inputs: dict) -> dict:
-        sched, waves = self._schedule_for(circuit)
-        self.wave_log.extend(sched.wave_log)
-        bufs = self._init_buffers(sched, inputs)
-        for w, ix in zip(sched.waves, waves):
-            WAVES[w.group](bufs, ix, self.key, self.params)
-        return self._gather_outputs(sched, bufs)
+        c = self._compiled(circuit)
+        self.wave_log.extend(c.schedule.wave_log)
+        for name, n in c.counts.items():
+            metrics.inc(name, n)
+        with span("wm.run"):
+            if c.graphs is None and c.ran and self.device.type == "cuda":
+                self._capture(c)
+            if c.graphs is None:
+                bufs = self._new_buffers(c.schedule)
+                self._scatter_inputs(c.schedule, bufs, inputs)
+                for name, waves in c.runs:
+                    with span(name):
+                        for fn, ix in waves:
+                            fn(bufs, ix, self.key, self.params)
+                c.ran = True
+            else:
+                bufs = c.bufs
+                self._reset_buffers(c.schedule, bufs)
+                self._scatter_inputs(c.schedule, bufs, inputs)
+                for (name, _), graph in zip(c.runs, c.graphs):
+                    with span(name):
+                        graph.replay()
+            return self._gather_outputs(c.schedule, bufs)
 
     def wave_stats(self) -> dict:
         return wave_stats(self.wave_log)
@@ -665,30 +771,47 @@ class WaveMachine:
     def schedule(self, circuit: FheCircuit) -> Schedule:
         """The schedule `run` uses for `circuit` (built once per circuit
         structure)."""
-        return self._schedule_for(circuit)[0]
+        return self._compiled(circuit).schedule
 
     # -- schedule cache -------------------------------------------------
 
-    @staticmethod
-    def _circuit_key(circuit: FheCircuit) -> tuple:
-        nodes = tuple(
-            (n.op.value,
-             n.param if isinstance(n.param, (int, str, type(None))) else repr(n.param))
-            for n in circuit.nodes
-        )
-        return (nodes, tuple(circuit.edges))
-
-    def _schedule_for(self, circuit: FheCircuit):
-        """The schedule and each wave's index arrays on the device, built
-        and uploaded once per circuit structure."""
-        ck = self._circuit_key(circuit)
-        s = self._schedules.get(ck)
-        if s is None:
+    def _compiled(self, circuit: FheCircuit) -> Compiled:
+        """The circuit's schedule with its index arrays on the device, built
+        and uploaded once per circuit structure, found by the circuit's
+        memoised `structure_key` (no walk over the graph on a later run)."""
+        ck = circuit.structure_key()
+        c = self._schedules.get(ck)
+        if c is None:
             sched = build_schedule(circuit)
-            s = (sched, [device_indices(w.idx, self.device) for w in sched.waves])
-            self._schedules[ck] = s
+            waves = [device_indices(w.idx, self.device) for w in sched.waves]
+            c = Compiled(sched, span_runs(sched, waves), schedule_counts(sched))
+            self._schedules[ck] = c
             metrics.inc("wavemachine.schedules")
-        return s
+        return c
+
+    def _capture(self, c: Compiled) -> None:
+        """Capture each stretch of `c`'s waves into a CUDA graph over
+        buffers of its own, all in one memory pool: every value that
+        crosses stretches lives in the buffers, so a stretch's temporaries
+        are free again when the next one is captured, and the graphs
+        replay in their capture order."""
+        bufs = self._new_buffers(c.schedule)
+        pool = torch.cuda.graph_pool_handle()
+        stream = torch.cuda.Stream(self.device)
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        graphs = []
+        with torch.cuda.stream(stream):
+            for _, waves in c.runs:
+                graph = torch.cuda.CUDAGraph()
+                graph.capture_begin(pool=pool)
+                try:
+                    for fn, ix in waves:
+                        fn(bufs, ix, self.key, self.params)
+                finally:
+                    graph.capture_end()
+                graphs.append(graph)
+        torch.cuda.current_stream(self.device).wait_stream(stream)
+        c.bufs, c.graphs = bufs, graphs
 
     # -- buffers ---------------------------------------------------------
 
@@ -704,9 +827,9 @@ class WaveMachine:
             _GGSW: (kp1, p.cbs_radix.count, kp1, n // 2),
         }
 
-    def _init_buffers(self, sched: Schedule, inputs: dict) -> dict:
-        """Zeroed buffers of S + 1 slots a kind (None for an unused kind),
-        the constants in slots 0 and 1, the inputs scattered into theirs."""
+    def _new_buffers(self, sched: Schedule) -> dict:
+        """Buffers of S + 1 slots a kind (None for an unused kind), zeroed
+        but for the constants in slots 0 and 1."""
         shapes = self.shapes()
         bufs = {}
         for kind, s in sched.slot_counts.items():
@@ -715,24 +838,41 @@ class WaveMachine:
             elif kind == _GGSW:
                 bufs[kind] = tuple(torch.zeros((s + 1, *shapes[kind]), dtype=torch.float32,
                                                device=self.device) for _ in range(4))
-                if sched.uses_ggsw_consts:
-                    if self.key.ggsw_zero_freq is None:
-                        raise CircuitError("circuit uses GGSW constants but the compute key"
-                                           " has no ggsw_zero/one_freq")
-                    for b, z, o in zip(bufs[kind], self.key.ggsw_zero_freq,
-                                       self.key.ggsw_one_freq):
-                        b[0], b[1] = z, o
             else:
                 bufs[kind] = torch.zeros((*shapes[kind], s + 1), dtype=torch.int64,
                                          device=self.device)
-                if kind == _GLWE:
-                    bufs[kind][-1, 0, 1] = torus.encode_const(1, 1)  # slot 1: trivial ONE
-        # stack the inputs of a kind on the host and ship them at once
+        self._set_constants(sched, bufs)
+        return bufs
+
+    def _reset_buffers(self, sched: Schedule, bufs: dict) -> None:
+        """Zero kept buffers and set their constants again, as
+        `_new_buffers` leaves them."""
+        for b in bufs.values():
+            if b is not None:
+                for plane in b if isinstance(b, tuple) else (b,):
+                    plane.zero_()
+        self._set_constants(sched, bufs)
+
+    def _set_constants(self, sched: Schedule, bufs: dict) -> None:
+        """The trivial ONE in GLWE slot 1 (slot 0 the zero); the key's
+        GGSW(0) and GGSW(1) in GGSW slots 0 and 1 where the circuit uses
+        them."""
+        if bufs.get(_GLWE) is not None:
+            bufs[_GLWE][-1, 0, 1] = torus.encode_const(1, 1)
+        if bufs.get(_GGSW) is not None and sched.uses_ggsw_consts:
+            if self.key.ggsw_zero_freq is None:
+                raise CircuitError("circuit uses GGSW constants but the compute key"
+                                   " has no ggsw_zero/one_freq")
+            for b, z, o in zip(bufs[_GGSW], self.key.ggsw_zero_freq, self.key.ggsw_one_freq):
+                b[0], b[1] = z, o
+
+    def _scatter_inputs(self, sched: Schedule, bufs: dict, inputs: dict) -> None:
+        """The inputs into their slots: those of a kind stacked on the host
+        and shipped at once."""
         for kind, (names, sl) in sched.inputs.items():
             x = np.stack([np.asarray(inputs[nm], dtype=np.uint64) for nm in names], axis=-1)
             slots = torch.from_numpy(sl[:len(names)].astype(np.int64)).to(self.device)
             bufs[kind].index_copy_(-1, slots, torus.from_u64_np(x, self.device))
-        return bufs
 
     def _gather_outputs(self, sched: Schedule, bufs: dict) -> dict:
         by_kind: dict[str, list] = {}

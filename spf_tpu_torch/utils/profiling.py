@@ -181,9 +181,12 @@ def span_clock(clock: DeviceSpanClock | None) -> None:
 def span(name: str):
     """One stage of the program as a named range of a profiler's trace
     (`torch.profiler.record_function`; with no profiler running it costs
-    a few microseconds), timed on the device while a clock is installed.
-    Usable as a decorator."""
+    a few microseconds), timed on the device while a clock is installed,
+    but not while its stream is being captured into a CUDA graph (which
+    runs nothing then). Usable as a decorator."""
     clock = _clock
+    if clock is not None and torch.cuda.is_current_stream_capturing():
+        clock = None
     start = clock.record() if clock is not None else None
     with torch.profiler.record_function(name):
         yield
